@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..ops import assembly, eval as ops_eval, kernels, kkt, legendre, tridiag
+from ..utils.device import resolve as resolve_device
 from .problem import Problem1D
 
 _span = torch.profiler.record_function
@@ -102,8 +103,11 @@ class Solution(NamedTuple):
 
 def uniform_nodes(problem: Problem1D, num_nodes: int, dtype,
                   device=None) -> torch.Tensor:
+    """Uniform node array on ``device`` (None: the GPU, see
+    ``utils.device``)."""
     x0, x1 = problem.domain
-    return torch.linspace(x0, x1, num_nodes, dtype=dtype, device=device)
+    return torch.linspace(x0, x1, num_nodes, dtype=dtype,
+                          device=resolve_device(device))
 
 
 def fem_solve(problem: Problem1D, nodes: torch.Tensor, cfg: SolverConfig):
@@ -320,11 +324,10 @@ def hybrid_solve(problem: Problem1D, cfg: SolverConfig, nodes: torch.Tensor,
 
     ``shared_ops`` (from ``prepare_shared_host``) requires a uniform mesh;
     ``uniform=True`` asserts uniformity for variable-coefficient problems
-    too.  ``device`` moves ``nodes`` and ``shared_ops`` there first;
-    otherwise the solve runs where ``nodes`` lies.
+    too.  ``nodes`` and ``shared_ops`` are moved to ``device`` first (None:
+    the GPU; a machine without one raises — pass ``device='cpu'``).
     """
-    if device is not None:
-        nodes = nodes.to(device)
+    nodes = nodes.to(resolve_device(device))
     if shared_ops is not None:
         shared_ops = shared_ops.to(nodes.device)
     if cfg.fem_dtype is not None:
@@ -359,12 +362,14 @@ def sweep_solve(problem: Problem1D, cfgs, device=None) -> list:
     """Solve several configurations one after another; on a GPU the host
     precompute of config k+1 overlaps the device work of config k, since
     nothing here synchronises."""
+    device = resolve_device(device)
     sols = []
     for cfg in cfgs:
         shared = prepare_shared_host(problem, cfg)
         nodes = uniform_nodes(problem, cfg.num_nodes, cfg.torch_dtype(),
                               device)
-        sols.append(hybrid_solve(problem, cfg, nodes, shared, uniform=True))
+        sols.append(hybrid_solve(problem, cfg, nodes, shared, uniform=True,
+                                 device=device))
     return sols
 
 
@@ -382,8 +387,8 @@ def _interp(x, xp, fp):
 class HybridSolver:
     """Stateful facade with the reference class's API shape.
 
-    ``device`` (default: where ``nodes`` lies, else the CPU) is where the
-    whole solve runs.
+    ``device`` is where the whole solve runs: the GPU by default (a machine
+    without one raises), the CPU only on ``device='cpu'``.
     """
 
     def __init__(self, problem: Problem1D,
@@ -391,10 +396,7 @@ class HybridSolver:
                  device=None):
         self.problem = problem
         self.config = config
-        if device is None:
-            device = nodes.device if isinstance(nodes, torch.Tensor) \
-                else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if nodes is not None:
             if not isinstance(nodes, torch.Tensor):
                 nodes = torch.as_tensor(nodes, dtype=config.torch_dtype())
@@ -412,12 +414,14 @@ class HybridSolver:
     def solve(self) -> Solution:
         if self._custom_nodes is not None:
             self.solution = hybrid_solve_general(
-                self.problem, self.config, self._custom_nodes)
+                self.problem, self.config, self._custom_nodes,
+                device=self.device)
         else:
             with _span("prepare_shared_host"):
                 shared = prepare_shared_host(self.problem, self.config)
             self.solution = hybrid_solve(
-                self.problem, self.config, self.nodes, shared, uniform=True)
+                self.problem, self.config, self.nodes, shared, uniform=True,
+                device=self.device)
         return self.solution
 
     @property

@@ -1,11 +1,13 @@
-"""Batched LSSVR element solves: closed-form bordered KKT systems (1D).
+"""Batched LSSVR element solves: closed-form bordered KKT systems.
 
-PyTorch counterpart of the 1D parts of ``hybrid_fem_lssvr_tpu/ops/kkt.py``.
-The per-element problem
+PyTorch counterpart of ``hybrid_fem_lssvr_tpu/ops/kkt.py``.  The
+per-element problem
 
     min_w,e  0.5 ||w||^2 + gamma/2 ||e||^2
     s.t.     (D w)_j + e_j = f_j   (C PDE collocation rows)
-             B w = bc              (2 endpoint-continuity rows)
+             B w = bc              (K continuity rows: the 2 endpoint
+                                    values in 1D, the 4M-4 boundary-trace
+                                    values of a quad in 2D)
 
 is solved by one of three batched paths:
 
@@ -14,15 +16,20 @@ is solved by one of three batched paths:
   constraint block solves every element.
 * ``solve_primal_shared`` — uniform mesh and x-independent coefficients:
   one affine map (f, bc) -> w, precomputed on the host in float64
-  (``precompute_shared_host``), applied as two matmuls.
+  (``precompute_shared_host``; ``precompute_shared_lse_host`` for operators
+  with a large null space, as the 2D Laplacian), applied as two matmuls.
 * ``solve_dual_batched`` — the dual formulation through the
   row-equilibrated augmented quasi-definite system.
 
 float32 routes through the null-space least-squares path
 ``solve_primal_lse`` (CGS2 QR), the only one that survives f32 at the
-reference's gamma.  The JAX module's closed-form 2x2 ``_solve_tiny``
-existed because LU did not compile in emulated f64 on the TPU; here the
-Schur system goes to ``torch.linalg.solve``.  On a GPU, float32 matmuls must
+reference's gamma.  The JAX module's ``_solve_tiny`` (a closed-form 2x2,
+and for K > 2 an equilibrated Cholesky with one refinement step) existed
+because LU did not compile in emulated f64 on the TPU; here the K x K Schur
+system goes to pivoted LU (``torch.linalg.solve``) for every K.  (In 2D the
+float64 per-element route inherits cond(I + gamma D^T D) ~ 1e16 from the
+Laplacian's discrete-harmonic null space: its coefficients are good to
+~1e-8 whatever solves the Schur block, in either package.)  On a GPU, float32 matmuls must
 run in full float32: keep ``torch.backends.cuda.matmul.allow_tf32`` False.
 """
 
@@ -101,8 +108,8 @@ def _kkt_core(L, s, B, rw, rbc):
 
 
 def solve_primal_batched(D, B, f, bc, gamma, refine_steps: int = 0):
-    """Per-element-operator path. D: [E, C, M]; B: [2, M] or [E, 2, M];
-    f: [E, C]; bc: [E, 2].  Returns (w [E, M], KKTDiagnostics).
+    """Per-element-operator path. D: [E, C, M]; B: [K, M] or [E, K, M];
+    f: [E, C]; bc: [E, K].  Returns (w [E, M], KKTDiagnostics).
 
     ``refine_steps`` > 0 adds iterative refinement on the full KKT
     residual with the same factorisation.
@@ -257,12 +264,12 @@ class SharedOperators:
     """
 
     Wf: torch.Tensor  # [M, C]
-    Wbc: torch.Tensor  # [M, 2]
+    Wbc: torch.Tensor  # [M, K]
     D: torch.Tensor  # [C, M] (kept for diagnostics)
-    B: torch.Tensor  # [2, M]
+    B: torch.Tensor  # [K, M]
     WfF: Optional[torch.Tensor] = None  # [R, M] host-f64 Wf @ b_r
     PF: Optional[torch.Tensor] = None  # [R, C] host-f64 (I - D Wf) @ b_r
-    Qres: Optional[torch.Tensor] = None  # [C, 2] host-f64 -(D @ Wbc)
+    Qres: Optional[torch.Tensor] = None  # [C, K] host-f64 -(D @ Wbc)
     Pres: Optional[torch.Tensor] = None  # [C, C] residual projector I - D Wf
     cond: Optional[torch.Tensor] = None  # scalar host-exact kappa_2
 
@@ -357,8 +364,51 @@ def precompute_shared_dual_host(D0, B, gamma, dtype=torch.float32,
     )
 
 
+def precompute_shared_lse_host(D0, B, dtype=torch.float32,
+                               rhs_colloc_factors=None,
+                               rcond=None) -> SharedOperators:
+    """Host float64 precompute of the shared affine map via the null-space
+    LSE formulation (the gamma -> infinity limit; it deviates from the
+    gamma-regularised optimum by O(1/(gamma ||D||_F^2))).
+
+    Required when D has a large null space — the 2D Laplacian on
+    tensor-product Legendre bases, whose discrete-harmonic directions make
+    cond(I + gamma D^T D) overflow even float64.
+
+    ``rcond``: rank-tolerant SVD route for rank-deficient constraint
+    matrices (trace rows with exact dependencies): Z then spans the full
+    null space (right singular vectors past the numerical rank) and the
+    particular map is the pseudoinverse, where the QR/inv route would give
+    a truncated null space and the inverse of a singular B B^T."""
+    D0 = np.asarray(D0, np.float64)
+    B = np.asarray(B, np.float64)
+    M = D0.shape[1]
+    K = B.shape[0]
+    if rcond is None:
+        Q, _ = np.linalg.qr(B.T, mode="complete")  # [M, M]
+        Z = Q[:, K:]  # orthonormal null(B)
+        Pbc = B.T @ np.linalg.inv(B @ B.T)  # min-norm particular map
+    else:
+        U, sv, Vt = np.linalg.svd(B)
+        r = int(np.sum(sv > rcond * sv[0]))
+        Z = Vt[r:].T  # orthonormal full null(B)
+        Pbc = Vt[:r].T @ ((1.0 / sv[:r])[:, None] * U[:, :r].T)  # pinv(B)
+    G = D0 @ Z
+    qg, rg = np.linalg.qr(G)
+    Wf = Z @ np.linalg.solve(rg, qg.T)  # [M, C]: lsq correction map
+    Wbc = (np.eye(M) - Wf @ D0) @ Pbc
+    return SharedOperators(
+        Wf=torch.as_tensor(Wf, dtype=dtype),
+        Wbc=torch.as_tensor(Wbc, dtype=dtype),
+        D=torch.as_tensor(D0, dtype=dtype),
+        B=torch.as_tensor(B, dtype=dtype),
+        cond=torch.as_tensor(np.linalg.cond(G), dtype=dtype),
+        **_rhs_factor_fields(Wf, Wbc, D0, rhs_colloc_factors, dtype),
+    )
+
+
 def solve_primal_shared(ops: SharedOperators, f, bc):
-    """All E elements in two matmuls.  f: [E, C]; bc: [E, 2] ->
+    """All E elements in two matmuls.  f: [E, C]; bc: [E, K] ->
     (w [E, M], KKTDiagnostics)."""
     w = f @ ops.Wf.T + bc @ ops.Wbc.T
     cond = None

@@ -1,10 +1,11 @@
 """Carry the JAX package's operator bundles into the port.
 
 The solver has no learned weights; its "parameters" are the host-f64
-operator bundles: ``SharedOperators`` (the shared affine enhancement map)
-and ``VarCoeffOperators`` (the statics of the per-element kernel).  Their
-JAX counterparts are converted field by field, through a dict of numpy
-arrays made with ``np.asarray`` on each field, e.g.
+operator bundles: ``SharedOperators`` (the shared affine enhancement map,
+1D and 2D), ``VarCoeffOperators`` (the statics of the 1D per-element
+kernel) and ``VarCoeff2DOperators`` (the operator parts of the 2D
+per-element solve).  Their JAX counterparts are converted field by field,
+through a dict of numpy arrays made with ``np.asarray`` on each field, e.g.
 
     arrays = {k: np.asarray(v) for k, v in jax_ops._asdict().items()
               if v is not None}
@@ -18,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..models.hybrid2d import VarCoeff2DOperators
 from ..ops.kernels import VarCoeffOperators
 from ..ops.kkt import SharedOperators
 
@@ -35,7 +37,9 @@ def _tensors(cls, arrays, device, dtype):
 def shared_operators_from_arrays(arrays: dict, device=None,
                                  dtype=torch.float32) -> SharedOperators:
     """``SharedOperators`` on ``device`` in ``dtype`` from numpy arrays
-    keyed by field name (absent optional fields stay None)."""
+    keyed by field name (absent optional fields stay None).  The shared 2D
+    bundle of ``prepare_shared_2d`` has the same fields (with K = 4M-4
+    trace rows) and goes through this function too."""
     return SharedOperators(**_tensors(SharedOperators, arrays, device, dtype))
 
 
@@ -47,3 +51,14 @@ def varcoeff_operators_from_arrays(arrays: dict, device=None,
     fields = {k: v for k, v in fields.items() if k not in ("K", "s2")}
     return VarCoeffOperators(K=int(arrays["K"]), s2=float(arrays["s2"]),
                              **fields)
+
+
+def varcoeff2d_operators_from_arrays(arrays: dict, device=None,
+                                     dtype=torch.float32
+                                     ) -> VarCoeff2DOperators:
+    """``VarCoeff2DOperators`` from numpy arrays keyed by field name (Lap,
+    Gx, Gy, Dconst, B, Z, Pbc, AZ, AP, NZ) and the scalars s2, n_terms."""
+    fields = _tensors(VarCoeff2DOperators, arrays, device, dtype)
+    fields = {k: v for k, v in fields.items() if k not in ("s2", "n_terms")}
+    return VarCoeff2DOperators(s2=float(arrays["s2"]),
+                               n_terms=int(arrays["n_terms"]), **fields)

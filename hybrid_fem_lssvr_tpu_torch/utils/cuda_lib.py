@@ -1,10 +1,10 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface and loaded with ``ctypes``.  The library is built
-on first use into ``_build/<hash>/`` inside the package directory, keyed by
-a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused.  Nothing here runs at import time: importing the
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+of its own with a plain C interface and loaded with ``ctypes``.  The
+libraries are built on first use, in parallel, into ``_build/<hash>/``
+inside the package directory, keyed by a hash of all sources and flags, so
+an edited source rebuilds and an unchanged tree is reused.  Nothing here runs at import time: importing the
 package never needs ``nvcc`` or a GPU.
 """
 
@@ -24,9 +24,11 @@ BUILD_ROOT = os.path.join(_PKG_DIR, "_build")
 # need IEEE NaN/Inf semantics.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_SOURCES = ("enhance1d.cu",)
+# One shared library per source, so that the sources compile in parallel.
+SOURCES = ("enhance1d", "enhance2d", "enhance2d_varcoeff")
+_HEADERS = ("enhance_common.cuh",)
 
-_lib = None
+_libs = {}
 
 
 def _nvcc() -> str:
@@ -40,57 +42,92 @@ def _nvcc() -> str:
 
 def build_dir() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
+    for name in [f"{s}.cu" for s in SOURCES] + list(_HEADERS):
         with open(os.path.join(CSRC_DIR, name), "rb") as fh:
             h.update(name.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16])
 
 
-def lib_path() -> str:
-    return os.path.join(build_dir(), "libenhance1d.so")
+def lib_path(source: str) -> str:
+    return os.path.join(build_dir(), f"lib{source}.so")
 
 
-def build() -> str:
-    """Compile the kernels unless a library for these sources exists.
-    Returns the library path.  The compiler's output (``-Xptxas -v``
-    register and spill counts) is kept in ``build.log`` beside it."""
-    out = lib_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    with open(os.path.join(os.path.dirname(out), "build.log"), "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log[-4000:]}")
-    os.replace(tmp, out)  # atomic: concurrent builders never see a partial
-    return out
+def build() -> dict:
+    """Compile every source that has no library yet, all ``nvcc`` processes
+    started together.  Returns {source: library path}.  Each compiler's
+    output (``-Xptxas -v`` register and spill counts) is kept in
+    ``<source>.log`` beside the libraries."""
+    out_dir = build_dir()
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for source in SOURCES:
+        out = lib_path(source)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.tmp{os.getpid()}"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC_DIR, f"{source}.cu")]
+        procs[source] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for source, (cmd, tmp, proc) in procs.items():
+        log = proc.communicate()[0]
+        with open(os.path.join(out_dir, f"{source}.log"), "w") as fh:
+            fh.write(" ".join(cmd) + "\n" + log)
+        if proc.returncode != 0:
+            failed.append(f"{source}.cu: nvcc failed ({proc.returncode}):\n"
+                          f"{log[-4000:]}")
+        else:
+            # atomic: a concurrent build never sees a partial library
+            os.replace(tmp, lib_path(source))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {source: lib_path(source) for source in SOURCES}
 
 
 def build_log() -> str:
-    path = os.path.join(build_dir(), "build.log")
-    if not os.path.exists(path):
-        return ""
-    with open(path) as fh:
-        return fh.read()
+    """The compilers' output for every source built so far."""
+    logs = []
+    for source in SOURCES:
+        path = os.path.join(build_dir(), f"{source}.log")
+        if os.path.exists(path):
+            with open(path) as fh:
+                logs.append(fh.read())
+    return "\n".join(logs)
+
+
+def _demangle_kernel(name: str):
+    """(kernel name, template integers) of a mangled ``*_kernel<...>``
+    entry point; (name, []) when it does not look like one.  The mangled
+    form is ``<length><name>I<args>E``; a digit of the file hash before the
+    length can make several readings fit, and the shortest is the name."""
+    found = None
+    for m in re.finditer(r"\d+", name):
+        for start in range(m.start(), m.end()):
+            n = int(name[start:m.end()])
+            cand = name[m.end():m.end() + n]
+            k = re.match(r"I((?:L[a-z]\d+E)+)E", name[m.end() + n:])
+            if (len(cand) == n and cand.endswith("_kernel") and k
+                    and (found is None or n < len(found[0]))):
+                found = cand, [int(v) for v in
+                               re.findall(r"L[a-z](\d+)E", k.group(1))]
+    return found or (name, [])
 
 
 def ptxas_summary(log: str):
-    """[{kernel, M, C, registers, spill_stores, spill_loads}] parsed from
-    ``-Xptxas -v`` output."""
+    """[{kernel, M, C, params, registers, spill_stores, spill_loads}] parsed
+    from ``-Xptxas -v`` output.  ``params`` lists every integer or boolean
+    template argument of the kernel; M and C are the first two."""
     rows, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = m.group(1)
-            k = re.search(r"(\w+?_kernel)ILi(\d+)ELi(\d+)E", name)
-            cur = {"kernel": k.group(1) if k else name,
-                   "M": int(k.group(2)) if k else None,
-                   "C": int(k.group(3)) if k else None}
+            kernel, params = _demangle_kernel(m.group(1))
+            cur = {"kernel": kernel,
+                   "M": params[0] if params else None,
+                   "C": params[1] if len(params) > 1 else None,
+                   "params": params}
             rows.append(cur)
             continue
         if cur is None:
@@ -106,25 +143,43 @@ def ptxas_summary(log: str):
     return rows
 
 
-def load() -> ctypes.CDLL:
-    """Build if needed and load the kernel library (once per process)."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(build())
+def _bind(source, lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.enhance1d_separable_f32.argtypes = [i, p, p, p, p, p, p, p, p,
-                                            i, i, i, i, i, i]
-    lib.enhance1d_shared_f32.argtypes = [i, p, p, p, p, p, p, p,
-                                         i, i, i, i]
-    lib.enhance1d_varcoeff_f32.argtypes = [i, p, p, p, p, p, p, p, p, p,
-                                           i, i, i, f, f, f, i]
-    for fn in (lib.enhance1d_separable_f32, lib.enhance1d_shared_f32,
-               lib.enhance1d_varcoeff_f32):
+    if source == "enhance1d":
+        launchers = {
+            "enhance1d_separable_f32": [i, p, p, p, p, p, p, p, p,
+                                        i, i, i, i, i, i],
+            "enhance1d_shared_f32": [i, p, p, p, p, p, p, p, i, i, i, i],
+            "enhance1d_varcoeff_f32": [i, p, p, p, p, p, p, p, p, p,
+                                       i, i, i, f, f, f, i],
+        }
+    elif source == "enhance2d":
+        args = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, i]
+        launchers = {"enhance2d_stacked_f32": args,
+                     "enhance2d_shared_f32": args}
+    else:
+        launchers = {"enhance2d_varcoeff_f32": [i, p, p, p, p, p, p, p, p,
+                                                p, i, i, i, i, i, f, f,
+                                                i, i, i]}
+    for name, argtypes in launchers.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = i
-    lib.enhance1d_supported.argtypes = [i, i]
-    lib.enhance1d_supported.restype = i
-    lib.enhance1d_error_string.argtypes = [i]
-    lib.enhance1d_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+    supported = getattr(lib, f"{source}_supported")
+    supported.argtypes = [i, i]
+    supported.restype = i
+    err = getattr(lib, f"{source}_error_string")
+    err.argtypes = [i]
+    err.restype = ctypes.c_char_p
+
+
+def load(source: str = "enhance1d") -> ctypes.CDLL:
+    """Build whatever is not built yet and load the library of ``source``
+    (once per process)."""
+    if source not in SOURCES:
+        raise ValueError(f"unknown kernel source {source!r}; have {SOURCES}")
+    if source not in _libs:
+        lib = ctypes.CDLL(build()[source])
+        _bind(source, lib)
+        _libs[source] = lib
+    return _libs[source]

@@ -31,7 +31,8 @@ TEST_POINTS = np.linspace(-1, 1, 201)  # the reference's evaluation grid
 
 
 def port_solve(name="poisson_1d", nodes=None, **cfg):
-    s = HybridSolver(problems.get(name), SolverConfig(**cfg), nodes=nodes)
+    s = HybridSolver(problems.get(name), SolverConfig(**cfg), nodes=nodes,
+                     device="cpu")
     s.solve()
     return s
 
@@ -143,10 +144,12 @@ def test_jax_operators_through_converter_give_same_solution():
     arrays = {k: np.asarray(v) for k, v in jops._asdict().items()
               if v is not None}
     ops = convert.shared_operators_from_arrays(arrays, dtype=torch.float64)
-    nodes = H.uniform_nodes(problem, 33, torch.float64)
-    via_jax = H.hybrid_solve(problem, cfg, nodes, ops, uniform=True)
+    nodes = H.uniform_nodes(problem, 33, torch.float64, device="cpu")
+    via_jax = H.hybrid_solve(problem, cfg, nodes, ops, uniform=True,
+                             device="cpu")
     own = H.hybrid_solve(problem, cfg, nodes,
-                         H.prepare_shared_host(problem, cfg), uniform=True)
+                         H.prepare_shared_host(problem, cfg), uniform=True,
+                         device="cpu")
     rel_close(via_jax.coeffs, own.coeffs, 1e-13)
     rel_close(via_jax.coeffs, jax_solve(num_nodes=33).solution.coeffs, 1e-12)
 
@@ -177,7 +180,7 @@ def test_kernel_route_on_cpu_matches_torch_route(case, monkeypatch):
     def solve():
         s = HybridSolver(problem, SolverConfig(**cfg),
                          nodes=None if nodes is None else
-                         torch.from_numpy(nodes))
+                         torch.from_numpy(nodes), device="cpu")
         s.solve()
         return s
 
@@ -205,7 +208,8 @@ def test_facade_evaluation_and_sweep():
                      dtype=torch.float64)
     rel_close(u, legendre.evaluate_series(c[[0, -1]], t), 1e-14)
     sols = H.sweep_solve(problems.poisson_1d(),
-                         [SolverConfig(num_nodes=n) for n in (9, 17)])
+                         [SolverConfig(num_nodes=n) for n in (9, 17)],
+                         device="cpu")
     rel_close(sols[0].coeffs, s.solution.coeffs, 0.0)
     assert sols[1].coeffs.shape == (16, 8)
     assert s.fem_nodes is s.solution.nodes
@@ -219,3 +223,20 @@ def test_facade_evaluation_and_sweep():
 def test_config_validation(bad):
     with pytest.raises(ValueError):
         SolverConfig(**bad)
+
+
+def test_default_device_is_the_gpu_or_an_error():
+    """With no ``device`` an entry point runs on the GPU; on a machine
+    without one it raises instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU; see tests/test_torch_cuda.py")
+    problem, cfg = problems.poisson_1d(), SolverConfig(num_nodes=9)
+    nodes = torch.linspace(-1.0, 1.0, 9, dtype=torch.float64)
+    for call in (lambda: HybridSolver(problem),
+                 lambda: HybridSolver(problem, cfg, nodes=nodes),
+                 lambda: H.uniform_nodes(problem, 9, torch.float64),
+                 lambda: H.hybrid_solve(problem, cfg, nodes),
+                 lambda: H.hybrid_solve_general(problem, cfg, nodes),
+                 lambda: H.sweep_solve(problem, [cfg])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

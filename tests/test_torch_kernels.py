@@ -259,7 +259,7 @@ def test_cuda_route_rejects_cpu_tensors(poisson):
         K._separable_cuda(t, a, tops, True, True)
     cfg = SolverConfig(num_nodes=33, dtype="float32", backend="cuda")
     with pytest.raises(ValueError, match="backend='cuda'"):
-        HybridSolver(tprob.poisson_1d(), cfg).solve()
+        HybridSolver(tprob.poisson_1d(), cfg, device="cpu").solve()
     assert H._resolve_backend(SolverConfig(dtype="float32"), "cpu") == "torch"
     assert H._resolve_backend(SolverConfig(dtype="float32"), "cuda") == "cuda"
     assert H._resolve_backend(SolverConfig(), "cuda") == "torch"  # float64

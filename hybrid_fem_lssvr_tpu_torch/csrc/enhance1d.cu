@@ -23,29 +23,17 @@
 // Each entry point launches on the caller's stream, never synchronises,
 // allocates nothing, and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "enhance_common.cuh"
 
 namespace {
 
+using enh::kEps;
+using enh::load_statics;
+using enh::nan_max;
+using enh::nan_min;
+
 constexpr int kThreads = 128;
 constexpr int kMaxR = 4;  // rank of a separable rhs (MAX_FACTORS in Python)
-constexpr float kEps = 1e-30f;
-
-// max that propagates NaN (jnp.max / jnp.maximum semantics; fmaxf drops it).
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (b > a || b != b) ? b : a;
-}
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (b < a || b != b) ? b : a;
-}
-
-__device__ __forceinline__ void load_statics(float* dst,
-                                             const float* __restrict__ src,
-                                             int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-  __syncthreads();
-}
 
 // ---------------------------------------------------------------------------
 // 1. Separable rhs (replaces pallas_kernels.py::fused_enhance_separable).

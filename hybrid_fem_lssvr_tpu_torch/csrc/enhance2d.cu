@@ -76,6 +76,9 @@ __device__ __forceinline__ float bc_violation(const float* Bm, const float* wv,
 // feeds four FMAs.
 //
 // statics: OT [C2+KB][ROWS_P], B [KB][M2], pts [8][KB].
+//
+// DIAG is a template parameter here (the other kernels take it at run time)
+// because it sets the number of accumulator registers, ROWS.
 template <int M, int C, bool DIAG>
 __global__ void __launch_bounds__(kThreads)
 stacked2d_kernel(const float* __restrict__ fem, const float* __restrict__ f,
@@ -200,9 +203,6 @@ inline unsigned blocks_for(int E) {
 }
 
 }  // namespace
-
-// (M, C) pairs compiled; enhance2d_supported() answers for them.
-#define ENH2D_SHAPES(X) X(4, 4) X(5, 5) X(6, 6)
 
 extern "C" {
 

@@ -382,9 +382,6 @@ cudaError_t launch_qr(cudaStream_t st, const float* fem, const float* coef,
 
 }  // namespace
 
-// (M, C) pairs compiled; enhance2d_varcoeff_supported() answers for them.
-#define ENH2D_SHAPES(X) X(4, 4) X(5, 5) X(6, 6)
-
 extern "C" {
 
 int enhance2d_varcoeff_supported(int M, int C) {

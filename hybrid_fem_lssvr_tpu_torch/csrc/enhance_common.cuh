@@ -4,6 +4,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+// (M, C) pairs the 2D sources compile; their *_supported() functions answer
+// for them (SHAPES in ops/kernels2d.py is the Python-side copy).
+#define ENH2D_SHAPES(X) X(4, 4) X(5, 5) X(6, 6)
+
 namespace enh {
 
 constexpr float kEps = 1e-30f;

@@ -36,6 +36,8 @@ contraction of 'sne' (N = G^T G is accumulated in float32 instead) and
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -43,7 +45,8 @@ from ..utils import cuda_lib
 from . import kkt
 from .kernels import _ptr, _stream
 
-SHAPES = ((4, 4), (5, 5), (6, 6))  # (M, C) compiled: ENH2D_SHAPES in csrc/
+# (M, C) compiled: ENH2D_SHAPES in csrc/enhance_common.cuh
+SHAPES = ((4, 4), (5, 5), (6, 6))
 METHODS = ("sne", "qr")
 PLAIN_CHUNK = 1 << 17  # quads per batch of the plain per-element version
 
@@ -61,6 +64,20 @@ def launch_counts() -> dict:
 # Sampling (shared by each wrapper and its plain version)
 # --------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=64)
+def _upload(data: bytes, shape, dtype, device):
+    return torch.tensor(np.frombuffer(data, np.float64).reshape(shape),
+                        dtype=dtype, device=device)
+
+
+def _const(array, dtype, device):
+    """A small host array as a tensor on ``device``, uploaded once per
+    content (every solve of a sweep passes the same points).  Read-only:
+    the tensor is shared between calls."""
+    a = np.ascontiguousarray(array, np.float64)
+    return _upload(a.tobytes(), a.shape, dtype, torch.device(device))
+
+
 def _corner_coords(geom, nx, ny, dtype, device):
     """(xl, yl) [1, E]: lower-left corner of every quad, row-major, from
     index arithmetic in the run dtype."""
@@ -75,7 +92,7 @@ def _colloc_offsets(geom, t_int, dtype, device):
     """(dX, dY) [C^2, 1]: in-element offsets of the C x C collocation grid,
     rows (iy, ix) row-major as the operators' rows."""
     _, hx, _, hy = geom
-    t = torch.tensor(np.asarray(t_int), dtype=dtype, device=device)
+    t = _const(t_int, dtype, device)
     C = t.shape[0]
     dX = (t.repeat(C)[:, None] + 1.0) * (0.5 * hx)
     dY = (t.repeat_interleave(C)[:, None] + 1.0) * (0.5 * hy)
@@ -98,7 +115,7 @@ def _sample_gedge(g_fn, geom, nx, ny, bpts, dtype, device):
     """[4, Kb, max(nx, ny)]: g at the trace points of the boundary quads
     along the left, right (indexed by ey), bottom and top (by ex) edge."""
     x0, hx, y0, hy = geom
-    b = torch.tensor(np.asarray(bpts), dtype=dtype, device=device)
+    b = _const(bpts, dtype, device)
     bX = (b[:, 1:2] + 1.0) * (0.5 * hx)  # [Kb, 1]
     bY = (b[:, 0:1] + 1.0) * (0.5 * hy)
     xl = x0 + torch.arange(nx, dtype=dtype, device=device)[None] * hx
@@ -122,9 +139,8 @@ def _trace_points(bpts, dtype, device):
     rows = [0.25 * (1 - tx) * (1 - ty), 0.25 * (1 + tx) * (1 - ty),
             0.25 * (1 - tx) * (1 + ty), 0.25 * (1 + tx) * (1 + ty),
             tx == -1.0, tx == 1.0, ty == -1.0, ty == 1.0]
-    return torch.as_tensor(np.stack([np.asarray(r, np.float64)
-                                     for r in rows]),
-                           dtype=dtype, device=device)
+    return _const(np.stack([np.asarray(r, np.float64) for r in rows]),
+                  dtype, device)
 
 
 def _trace_bc(fem_values, gedge, pts, nx, ny):
@@ -249,7 +265,7 @@ def check_shape(name, M, C):
     """Raises ValueError for an (M, C) the CUDA sources do not compile."""
     if (M, C) not in SHAPES:
         raise ValueError(f"{name}: no CUDA kernel compiled for M={M}, "
-                         f"C={C} (ENH2D_SHAPES in csrc/enhance2d*.cu has "
+                         f"C={C} (ENH2D_SHAPES in csrc/enhance_common.cuh has "
                          f"{SHAPES}); use backend='torch'")
 
 
@@ -283,9 +299,25 @@ def _raise_on(lib, source, name, err):
         raise RuntimeError(f"{name}: CUDA launch failed ({err}): {msg}")
 
 
-def _flat(device, *mats):
-    return torch.cat([m.reshape(-1) for m in mats]).to(
+_STATICS = {}  # kernel variant -> (operator tensors, their packed copy)
+
+
+def _statics(key, device, mats, pack=None):
+    """The operators ``mats`` flattened into one float32 buffer on
+    ``device``, in order (``pack`` may rearrange them first).  The buffer of
+    the last bundle is kept per kernel variant: a solver, and every solve of
+    a sweep, passes the same operator tensors again."""
+    key = (key, device)
+    hit = _STATICS.get(key)
+    if (hit is not None and len(hit[0]) == len(mats)
+            and all(a is m and v == m._version
+                    for (a, v), m in zip(hit[0], mats))):
+        return hit[1]
+    parts = mats if pack is None else pack(*mats)
+    flat = torch.cat([m.reshape(-1) for m in parts]).to(
         device=device, dtype=torch.float32).contiguous()
+    _STATICS[key] = ([(m, m._version) for m in mats], flat)
+    return flat
 
 
 def _outputs(E, M2, dev, with_diagnostics):
@@ -309,14 +341,20 @@ def _stacked_cuda(fem_values, f, gedge, pts, ops, nx, ny, with_diagnostics):
     check_kernel_inputs(name, fem_values, M, C, f, gedge)
     lib = _checked_lib(name, "enhance2d", M, C)
     dev = fem_values.device
-    O = torch.cat([ops.Wf, ops.Wbc], dim=1)
-    if with_diagnostics:
-        O = torch.cat([O, torch.cat([ops.Pres, ops.Qres], dim=1)], dim=0)
-    rows = O.shape[0]
-    OT = torch.zeros(O.shape[1], (rows + 3) // 4 * 4, dtype=torch.float32,
-                     device=dev)
-    OT[:, :rows] = O.T  # transposed, rows padded to float4
-    statics = _flat(dev, OT, ops.B, pts)
+
+    def pack(Wf, Wbc, Pres, Qres, B, pts):
+        O = torch.cat([Wf, Wbc], dim=1)
+        if with_diagnostics:
+            O = torch.cat([O, torch.cat([Pres, Qres], dim=1)], dim=0)
+        rows = O.shape[0]
+        OT = torch.zeros(O.shape[1], (rows + 3) // 4 * 4,
+                         dtype=torch.float32, device=dev)
+        OT[:, :rows] = O.T  # transposed, rows padded to float4
+        return OT, B, pts
+
+    statics = _statics(
+        (name, with_diagnostics), dev,
+        (ops.Wf, ops.Wbc, ops.Pres, ops.Qres, ops.B, pts), pack)
     w, slack, bcv = _outputs(nx * ny, M2, dev, with_diagnostics)
     err = lib.enhance2d_stacked_f32(
         dev.index, _stream(fem_values), _ptr(fem_values), _ptr(f),
@@ -334,7 +372,7 @@ def _shared_cuda(fem_values, f, gedge, pts, ops, nx, ny, with_diagnostics):
     check_kernel_inputs(name, fem_values, M, C, f, gedge)
     lib = _checked_lib(name, "enhance2d", M, C)
     dev = fem_values.device
-    statics = _flat(dev, ops.Wf, ops.Wbc, ops.D, ops.B, pts)
+    statics = _statics(name, dev, (ops.Wf, ops.Wbc, ops.D, ops.B, pts))
     w, slack, bcv = _outputs(nx * ny, M2, dev, with_diagnostics)
     err = lib.enhance2d_shared_f32(
         dev.index, _stream(fem_values), _ptr(fem_values), _ptr(f),
@@ -354,7 +392,8 @@ def _varcoeff_cuda(fem_values, coef, f, gedge, pts, vops, nx, ny, s2,
     source = "enhance2d_varcoeff"
     lib = _checked_lib(name, source, M, C)
     dev = fem_values.device
-    statics = _flat(dev, vops.AZ, vops.AP, vops.Z, vops.Pbc, vops.B, pts)
+    statics = _statics(name, dev, (vops.AZ, vops.AP, vops.Z, vops.Pbc,
+                                   vops.B, pts))
     w, slack, bcv = _outputs(nx * ny, M2, dev, with_diagnostics)
     err = lib.enhance2d_varcoeff_f32(
         dev.index, _stream(fem_values), _ptr(fem_values), _ptr(coef),

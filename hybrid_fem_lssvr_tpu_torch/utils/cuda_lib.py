@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-of its own with a plain C interface and loaded with ``ctypes``.  The
-libraries are built on first use, in parallel, into ``_build/<hash>/``
-inside the package directory, keyed by a hash of all sources and flags, so
-an edited source rebuilds and an unchanged tree is reused.  Nothing here runs at import time: importing the
-package never needs ``nvcc`` or a GPU.
+of its own with a plain C interface and loaded with ``ctypes``.  A library
+is built on first use (``load``), or all of them in parallel (``build``),
+into ``_build/<hash>/`` inside the package directory, keyed by a hash of
+all sources and flags, so an edited source rebuilds and an unchanged tree
+is reused.  Nothing here runs at import time: importing the package never
+needs ``nvcc`` or a GPU.
 """
 
 from __future__ import annotations
@@ -52,15 +53,15 @@ def lib_path(source: str) -> str:
     return os.path.join(build_dir(), f"lib{source}.so")
 
 
-def build() -> dict:
-    """Compile every source that has no library yet, all ``nvcc`` processes
-    started together.  Returns {source: library path}.  Each compiler's
-    output (``-Xptxas -v`` register and spill counts) is kept in
+def build(sources=SOURCES) -> dict:
+    """Compile each of ``sources`` that has no library yet, all ``nvcc``
+    processes started together.  Returns {source: library path}.  Each
+    compiler's output (``-Xptxas -v`` register and spill counts) is kept in
     ``<source>.log`` beside the libraries."""
     out_dir = build_dir()
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for source in SOURCES:
+    for source in sources:
         out = lib_path(source)
         if os.path.exists(out):
             continue
@@ -78,12 +79,14 @@ def build() -> dict:
         if proc.returncode != 0:
             failed.append(f"{source}.cu: nvcc failed ({proc.returncode}):\n"
                           f"{log[-4000:]}")
+            if os.path.exists(tmp):
+                os.unlink(tmp)
         else:
             # atomic: a concurrent build never sees a partial library
             os.replace(tmp, lib_path(source))
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {source: lib_path(source) for source in SOURCES}
+    return {source: lib_path(source) for source in sources}
 
 
 def build_log() -> str:
@@ -97,22 +100,15 @@ def build_log() -> str:
     return "\n".join(logs)
 
 
-def _demangle_kernel(name: str):
-    """(kernel name, template integers) of a mangled ``*_kernel<...>``
-    entry point; (name, []) when it does not look like one.  The mangled
-    form is ``<length><name>I<args>E``; a digit of the file hash before the
-    length can make several readings fit, and the shortest is the name."""
-    found = None
-    for m in re.finditer(r"\d+", name):
-        for start in range(m.start(), m.end()):
-            n = int(name[start:m.end()])
-            cand = name[m.end():m.end() + n]
-            k = re.match(r"I((?:L[a-z]\d+E)+)E", name[m.end() + n:])
-            if (len(cand) == n and cand.endswith("_kernel") and k
-                    and (found is None or n < len(found[0]))):
-                found = cand, [int(v) for v in
-                               re.findall(r"L[a-z](\d+)E", k.group(1))]
-    return found or (name, [])
+def _demangle(names):
+    """The C++ names of mangled entry points, by the toolkit's ``cu++filt``
+    (it sits beside ``nvcc``); the names as they are where it is missing."""
+    filt = os.path.join(os.path.dirname(_nvcc()), "cu++filt")
+    if not names or not os.path.exists(filt):
+        return list(names)
+    out = subprocess.run([filt, *names], capture_output=True, text=True,
+                         check=True).stdout.splitlines()
+    return out if len(out) == len(names) else list(names)
 
 
 def ptxas_summary(log: str):
@@ -123,11 +119,7 @@ def ptxas_summary(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            kernel, params = _demangle_kernel(m.group(1))
-            cur = {"kernel": kernel,
-                   "M": params[0] if params else None,
-                   "C": params[1] if len(params) > 1 else None,
-                   "params": params}
+            cur = {"kernel": m.group(1)}
             rows.append(cur)
             continue
         if cur is None:
@@ -140,6 +132,16 @@ def ptxas_summary(log: str):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))
+    for row, name in zip(rows, _demangle([r["kernel"] for r in rows])):
+        # e.g. "void <unnamed>::stacked2d_kernel<(int)6, (int)6, (bool)1>(...)"
+        m = re.search(r"(\w+_kernel)<([^>]*)>", name)
+        params = []
+        if m:
+            row["kernel"] = m.group(1)
+            params = [int(v) if v.isdigit() else int(v == "true") for v in
+                      re.findall(r"\d+|true|false", m.group(2))]
+        row.update(M=params[0] if params else None,
+                   C=params[1] if len(params) > 1 else None, params=params)
     return rows
 
 
@@ -174,12 +176,12 @@ def _bind(source, lib):
 
 
 def load(source: str = "enhance1d") -> ctypes.CDLL:
-    """Build whatever is not built yet and load the library of ``source``
+    """Build the library of ``source`` if it is not built yet and load it
     (once per process)."""
     if source not in SOURCES:
         raise ValueError(f"unknown kernel source {source!r}; have {SOURCES}")
     if source not in _libs:
-        lib = ctypes.CDLL(build()[source])
+        lib = ctypes.CDLL(build((source,))[source])
         _bind(source, lib)
         _libs[source] = lib
     return _libs[source]

@@ -331,6 +331,30 @@ def test_2d_kernels_nan_nodal_value(dev):
                                    atol=3e-5)
 
 
+def test_2d_statics_follow_the_bundle(dev):
+    """The packed operators are kept between calls: another bundle, or an
+    in-place edit of the same one, must reach the kernel."""
+    nx, ny, M = 9, 7, 5
+    p, ops, fem, geom, t_int, bpts = inputs_2d("poisson_2d_inhomogeneous",
+                                               nx, ny, M, M, dev)
+    tail = (p.f, p.g, geom, nx, ny, t_int, bpts)
+    first = K2.fused_enhance_stacked_2d(fem, ops, *tail)
+    again = K2.fused_enhance_stacked_2d(fem, ops, *tail)
+    assert torch.equal(first[0], again[0])
+    skewed = dataclasses.replace(ops, B=1.5 * ops.B)
+    got = K2.fused_enhance_stacked_2d(fem, skewed, *tail)
+    want = K2.fused_enhance_stacked_2d_ref(fem, skewed, *tail)
+    assert float(want[2].min()) > 1e-3 > float(first[2].max())
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    assert torch.equal(got[0], first[0])
+    K2.fused_enhance_stacked_2d(fem, ops, *tail)  # packs ``ops`` again
+    ops.Wbc.mul_(2.0)
+    got = K2.fused_enhance_stacked_2d(fem, ops, *tail)
+    want = K2.fused_enhance_stacked_2d_ref(fem, ops, *tail)
+    assert float((got[0] - first[0]).abs().max()) > 1e-2
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=4e-5)
+
+
 def test_2d_kernels_reject_what_they_cannot_run(dev):
     p, ops, fem, geom, t_int, bpts = inputs_2d("poisson_2d", 8, 8, 6, 6, dev)
     args = (p.f, p.g, geom, 8, 8, t_int, bpts)

@@ -7,15 +7,18 @@ arithmetic in another order, and the coarse solve stops at a relative
 residual of 100 eps, which bounds how far two runs can drift apart.
 
 The JAX side is jit-compiled per configuration, and its multigrid V-cycle
-takes 8 s to compile, so the JAX comparisons run with ``precond='jacobi'``
-or ``'adi'`` (under a second each).  The multigrid routes ('mg', 'shifted',
-the composite mixed-BC one) are held three ways instead: the V-cycle itself
-against JAX's in ``tests/test_torch_ops2d.py``; the port's multigrid
-solution against its own Jacobi solution; and its iteration counts against
-the JAX package's, recorded in ``JAX_MG_ITERS``.
+takes 8 s to compile, so most JAX comparisons run with ``precond='jacobi'``
+or ``'adi'`` (under a second each).  The 'mg' and 'shifted' routes are held
+against the JAX package once each in ``CONFIGS`` (``poisson_2d`` at 16 x 16,
+``helmholtz_2d`` under BiCGStab).  For the other problems, and for the
+composite mixed-BC preconditioner (the same V-cycle on the inner unknowns
+plus Jacobi on the natural edges), the port's ``precond='auto'`` solution
+is held against its own Jacobi solution, and the V-cycle itself against
+JAX's in ``tests/test_torch_ops2d.py``.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -34,18 +37,6 @@ torch.set_num_threads(1)
 
 BASE = dict(nx=8, ny=8, M=5, n_colloc=5)
 
-# Krylov iterations of the JAX package (float64, CPU, M = 5, n_colloc = 5,
-# precond='auto'), from
-#   int(JH2.HybridSolver2D(JH2.get_problem_2d(name),
-#                          JH2.Solver2DConfig(nx=n, ny=n, M=5, n_colloc=5)
-#                          ).solve().cg_iters)
-JAX_MG_ITERS = {
-    ("poisson_2d", 8): 2, ("poisson_2d", 16): 5,
-    ("poisson_2d_inhomogeneous", 8): 6, ("helmholtz_2d", 8): 3,
-    ("advection_diffusion_2d", 8): 5, ("variable_coeff_elliptic_2d", 8): 6,
-    ("poisson_2d_neumann", 8): 9, ("robin_2d", 8): 17,
-}
-
 
 def np_(t):
     return np.asarray(t)
@@ -55,6 +46,14 @@ def close(got, want, atol):
     np.testing.assert_allclose(np_(got), np_(want), rtol=0, atol=atol)
 
 
+def cached(solve):
+    """One solve per configuration, shared by the tests that read it."""
+    memo = functools.lru_cache(maxsize=None)(
+        lambda name, items: solve(name, **dict(items)))
+    return lambda name, **kw: memo(name, tuple(sorted(kw.items())))
+
+
+@cached
 def port_solve(name, **kw):
     s = HybridSolver2D(get_problem_2d(name),
                        Solver2DConfig(**dict(BASE, **kw)), device="cpu")
@@ -62,6 +61,7 @@ def port_solve(name, **kw):
     return s
 
 
+@cached
 def jax_solve(name, **kw):
     s = JH2.HybridSolver2D(JH2.get_problem_2d(name),
                            JH2.Solver2DConfig(**dict(BASE, **kw)))
@@ -85,11 +85,11 @@ def assert_same_solution(got, want, coeff_tol=1e-9):
 
 
 CONFIGS = [
-    ("poisson_2d", dict(nx=16, ny=16)),
+    ("poisson_2d", dict(nx=16, ny=16, precond="mg")),
     ("poisson_2d", dict(formulation="dual")),
     ("poisson_2d", dict(nx=6, ny=10)),
     ("poisson_2d_inhomogeneous", {}),
-    ("helmholtz_2d", {}),
+    ("helmholtz_2d", dict(precond="shifted")),
     ("advection_diffusion_2d", {}),
     ("reaction_diffusion_2d", {}),
     ("variable_coeff_elliptic_2d", {}),
@@ -102,7 +102,7 @@ CONFIGS = [
                          ids=[f"{n}-{'-'.join(map(str, k.values())) or '8'}"
                               for n, k in CONFIGS])
 def test_solver_matches_jax_float64(name, kw):
-    kw = dict(kw, precond="jacobi")
+    kw = dict(dict(precond="jacobi"), **kw)
     # The float64 per-element route factors H = I + gamma D^T D, whose
     # condition number is ~1e16 in 2D (discrete-harmonic null space of the
     # Laplacian): either package meets its own trace constraints only to
@@ -129,15 +129,19 @@ def test_compact_coarse_with_trace_lift_matches_jax():
     assert float(got.errors(*pts)[0]) < 0.5 * float(q1.errors(*pts)[0])
 
 
-@pytest.mark.parametrize("name,n", sorted(JAX_MG_ITERS))
-def test_multigrid_routes_match_own_jacobi_and_jax_iterations(name, n):
+@pytest.mark.parametrize("name,n", [
+    ("poisson_2d", 8), ("poisson_2d", 16), ("poisson_2d_inhomogeneous", 8),
+    ("helmholtz_2d", 8), ("advection_diffusion_2d", 8),
+    ("variable_coeff_elliptic_2d", 8), ("poisson_2d_neumann", 8),
+    ("robin_2d", 8),
+])
+def test_multigrid_routes_match_own_jacobi(name, n):
     """precond='auto': mg, shifted (helmholtz) or the composite mixed-BC
-    preconditioner (neumann, robin)."""
+    preconditioner (neumann, robin) reaches the Jacobi route's solution."""
     auto = port_solve(name, nx=n, ny=n).solution
     jac = port_solve(name, nx=n, ny=n, precond="jacobi").solution
     close(auto.fem_values, jac.fem_values, 1e-10)
     close(auto.coeffs, jac.coeffs, 1e-8)
-    assert abs(auto.cg_iters - JAX_MG_ITERS[name, n]) <= 1
 
 
 def test_evaluation_matches_jax_and_clamps_outside():

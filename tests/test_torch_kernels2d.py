@@ -308,14 +308,75 @@ def test_routing_and_shape_checks():
 
 
 def test_compiled_shapes_agree_with_the_cuda_sources():
-    """``kernels2d.SHAPES`` is what both 2D sources compile."""
+    """``kernels2d.SHAPES`` is the list both 2D sources compile: the one
+    ``ENH2D_SHAPES`` of the header they share."""
     import os
     import re
 
     csrc = os.path.join(os.path.dirname(K2.__file__), os.pardir, "csrc")
+    with open(os.path.join(csrc, "enhance_common.cuh")) as fh:
+        line = re.search(r"#define ENH2D_SHAPES\(X\)(.*)", fh.read())
+    shapes = tuple((int(m), int(c)) for m, c in
+                   re.findall(r"X\((\d+), (\d+)\)", line.group(1)))
+    assert shapes == K2.SHAPES
     for name in ("enhance2d.cu", "enhance2d_varcoeff.cu"):
         with open(os.path.join(csrc, name)) as fh:
-            line = re.search(r"#define ENH2D_SHAPES\(X\)(.*)", fh.read())
-        shapes = tuple((int(m), int(c)) for m, c in
-                       re.findall(r"X\((\d+), (\d+)\)", line.group(1)))
-        assert shapes == K2.SHAPES, name
+            text = fh.read()
+        assert '#include "enhance_common.cuh"' in text, name
+        assert "#define ENH2D_SHAPES" not in text, name
+        assert "ENH2D_SHAPES(X)" in text, name
+
+
+def test_statics_are_packed_once_per_bundle():
+    """The flat operator buffer of a kernel is reused while the same
+    operator tensors come again, and rebuilt after an in-place edit or for
+    another bundle; small host arrays are uploaded once per content."""
+    cpu = torch.device("cpu")
+    A, B = torch.arange(6.0).reshape(2, 3), torch.ones(2, dtype=torch.float64)
+    first = K2._statics("k", cpu, (A, B))
+    assert first.dtype == torch.float32
+    assert first.tolist() == [0, 1, 2, 3, 4, 5, 1, 1]
+    assert K2._statics("k", cpu, (A, B)) is first
+    A[0, 0] = 7.0
+    second = K2._statics("k", cpu, (A, B))
+    assert second is not first and second[0] == 7.0
+    assert K2._statics("k", cpu, (A.clone(), B)) is not second
+    swapped = K2._statics("k2", cpu, (A, B), pack=lambda a, b: (b, a.T))
+    assert swapped.tolist() == [1, 1, 7, 3, 1, 4, 2, 5]
+    pts = np.array([[0.5, -1.0], [1.0, 0.25]])
+    t = K2._const(pts, torch.float32, "cpu")
+    assert K2._const(pts.copy(), torch.float32, cpu) is t
+    assert K2._const(2 * pts, torch.float32, "cpu") is not t
+    assert torch.equal(K2._trace_points(pts, torch.float64, "cpu")[4:],
+                       torch.tensor([[1., 0.], [0., 0.], [0., 0.], [0., 1.]],
+                                    dtype=torch.float64))
+
+
+def test_ptxas_summary_reads_template_arguments(monkeypatch):
+    """Registers and spills per kernel instantiation from nvcc's
+    ``-Xptxas -v`` output, named through the toolkit's demangler; without
+    one the rows keep the mangled names."""
+    from hybrid_fem_lssvr_tpu_torch.utils import cuda_lib
+
+    log = (
+        "ptxas info    : Compiling entry function '_ZN3abc16stacked2d_kernel"
+        "ILi6ELi6ELb1EEEvPKf' for 'sm_90a'\n"
+        "ptxas info    : Used 160 registers, 0 bytes spill stores, 0 bytes "
+        "spill loads\n"
+        "ptxas info    : Compiling entry function '_ZN3abc21varcoeff2d_sne_"
+        "kernelILi5ELi5EEEvPKf' for 'sm_90a'\n"
+        "    24 bytes stack frame, 24 bytes spill stores, 12 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 255 registers\n")
+    names = ["void abc::stacked2d_kernel<(int)6, (int)6, (bool)1>(const "
+             "float *)", "void abc::varcoeff2d_sne_kernel<5, 5>(float *)"]
+    monkeypatch.setattr(cuda_lib, "_demangle", lambda mangled: names)
+    a, b = cuda_lib.ptxas_summary(log)
+    assert a == dict(kernel="stacked2d_kernel", M=6, C=6, params=[6, 6, 1],
+                     registers=160, spill_stores=0, spill_loads=0)
+    assert b == dict(kernel="varcoeff2d_sne_kernel", M=5, C=5, params=[5, 5],
+                     registers=255, spill_stores=24, spill_loads=12)
+    monkeypatch.setattr(cuda_lib, "_demangle", list)
+    raw = cuda_lib.ptxas_summary(log)[0]
+    assert raw["kernel"].startswith("_ZN3abc") and raw["M"] is None
+    assert raw["registers"] == 160

@@ -2,19 +2,21 @@
 
     python3 chip_smoke.py [--gate-basis]
 
-``--gate-basis`` also solves each 2D configuration through the plain torch
-route on the card and prints its Linf: the numbers the 2D gates are set
-from.
+``--gate-basis`` also solves each 2D, graded 2D and 3D configuration
+through the plain torch route on the card and prints its Linf: the numbers
+their gates are set from.
 
 Builds the hand-written kernels of ``hybrid_fem_lssvr_tpu_torch/csrc`` with
 nvcc (one process per source, in parallel), holds each kernel against its
 plain PyTorch version at the main paths' shapes (1D: E = 2^20 elements,
 M = 8, 12 collocation points; 2D: 1024 x 1024 quads, M = 6, 6 x 6
-collocation points), then drives the 1D solver through ``HybridSolver`` at
-2^20 elements and at the reference's 25-node configuration and the 2D
-solver through ``HybridSolver2D`` at 1024 x 1024 quads, checks the errors
-against gates and shows through the kernels' launch counters that the
-solves ran on them.
+collocation points, on a uniform and on a power-law graded mesh; 3D: 128^3
+hexes, M = 4, 4^3 collocation points), then drives the 1D solver through
+``HybridSolver`` at 2^20 elements and at the reference's 25-node
+configuration, the 2D solvers through ``HybridSolver2D`` and
+``HybridSolver2DGraded`` at 1024 x 1024 quads and the 3D solver through
+``HybridSolver3D`` at 128^3 hexes, checks the errors against gates and
+shows through the kernels' launch counters that the solves ran on them.
 
 Each phase prints one JSON line.  The last lines are the kernel summary,
 the card's name and power limit as nvidia-smi reports them, and
@@ -46,6 +48,9 @@ KERNELS = {
     "fused_enhance_shared_2d": (f"{CSRC}/enhance2d.cu", f"{PALLAS}:341"),
     "fused_enhance_varcoeff_2d": (f"{CSRC}/enhance2d_varcoeff.cu",
                                   f"{PALLAS}:1064"),
+    "fused_enhance_graded_2d": (f"{CSRC}/enhance2d_graded.cu",
+                                f"{PALLAS}:1431"),
+    "fused_enhance_stacked_3d": (f"{CSRC}/enhance3d.cu", f"{PALLAS}:652"),
 }
 
 # The card's published peaks (H100 SXM data sheet): device memory rate and
@@ -66,6 +71,21 @@ M2D = C2D = 6
 REPS_2D = 5
 POINTS_2D = 1 << 20  # random evaluation points (seed 0) of the 2D gates
 TEST_POINTS = 201  # the reference's evaluation grid (25-node config)
+
+# The graded 2D path: 1024 x 1024 quads on the JAX package's power-law mesh
+# (cli.py ``_graded_axis_nodes``, power 1.5: the centre quads are 23x
+# narrower than the uniform ones), M = C = 6.  Jacobi-CG needs more than
+# the default 2000 iterations there.
+NG = 1024
+GRADED_POWER = 1.5
+GRADED_CG_MAXITER = 40000
+# The 3D path: 128^3 hexes (E = 2^21), M = C = 4 (the JAX default and
+# bench.py's stacked3d shape).
+N3D = 128
+M3D = C3D = 4
+REPS_3D = 5
+POINTS_3D = 1 << 20  # random evaluation points (seed 0) of the 3D gates
+N3D_VARCOEFF = 32  # variable coefficients: the torch route (no TPU kernel)
 
 # Linf gates on the dense grid: about 10x what the port's plain (torch)
 # route gives at the same size and dtypes on a CPU (2.98e-7, 2.98e-7,
@@ -103,13 +123,16 @@ RHS_REL_TOL = 1e-3
 # agree to 1e-7 and 5e-5 of the largest value, the 2D stacked and shared
 # slack to 0.30 and 0.52; the per-element factorisations amplify rounding
 # by ||D|| (0.78 sne, 1.14 qr, 1.24 in 1D); bcv to 0.6-1.25; the means
-# agree within 0.97-1.24.  In 2D, bcv is also computed with B scaled by
+# agree within 0.97-1.24; the graded 2D slack to 0.77 of its largest value
+# (means 1.22-1.23), the 3D slack to 1.2e-3.  In 2D and 3D, bcv is also
+# computed with B scaled by
 # 1.5, where it is ~max |bc| / 2 on every quad and not rounding, and held
 # quad by quad to BCV_SKEWED_REL of its size (an H100 run gives ~3e-7).
 SLACK_REL = {"separable_kernel": 1e-3, "shared_kernel": 1e-3,
              "varcoeff_kernel": 2.5, "stacked2d_kernel": 0.6,
              "shared2d_kernel": 1.0, "varcoeff2d_sne_kernel": 1.6,
-             "varcoeff2d_qr_kernel": 2.3}
+             "varcoeff2d_qr_kernel": 2.3, "graded2d_kernel": 2.5,
+             "stacked3d_kernel": 0.003}
 BCV_REL = 2.0
 MEAN_RATIO = (0.66, 1.5)
 BCV_SKEWED_REL = 1e-5
@@ -288,7 +311,8 @@ def phase_build():
     emit("build", seconds=seconds, nvcc_flags=" ".join(cuda_lib.NVCC_FLAGS),
          libraries=sorted(os.path.basename(v) for v in libs.values()),
          ptxas=[r for r in cuda_lib.ptxas_summary(log)
-                if (r.get("M"), r.get("C")) in ((M, C), (M2D, C2D))])
+                if (r.get("M"), r.get("C")) in ((M, C), (M2D, C2D),
+                                                 (M3D, C3D))])
 
 
 def kernel_inputs(device):
@@ -587,6 +611,64 @@ def nodal_grid_2d(problem, device):
     return u.to(device=device, dtype=torch.float32).contiguous()
 
 
+def check_kernel_against_plain(tag, wrapper, ref, kname, nodal, args, kw,
+                               w_shape, w_tol, ratio_range, skewed_args,
+                               rhs_args):
+    """A 2D or 3D kernel's wrapper against its plain version, whose
+    arguments after the nodal values are ``args``: w (of shape
+    ``w_shape``), bcv and the slack in magnitude (``ratio_range``; None
+    without diagnostics); the diagnostics relative to their own size; bcv
+    again on ``skewed_args`` (B scaled by 1.5); and w on zero nodal values
+    with ``rhs_args`` (zero boundary data), where it is the rhs part alone.
+    Returns the record of the comparisons."""
+    import torch
+
+    got, want = wrapper(nodal, *args, **kw), ref(nodal, *args, **kw)
+    torch.cuda.synchronize()
+    check(tuple(got[0].shape) == tuple(want[0].shape) == w_shape,
+          f"{tag}: w shape {tuple(got[0].shape)}, plain version "
+          f"{tuple(want[0].shape)}, expected {w_shape}")
+    check(bool(torch.isfinite(got[0]).all()), f"{tag}: non-finite w")
+    err = max_err(got[0], want[0])
+    check(err <= w_tol, f"{tag}: w max abs err {err} > {w_tol}")
+    rec = dict(max_abs_err=err, slack_ratio=None)
+    if ratio_range is not None:
+        bcv_err = max_err(got[2], want[2])
+        check(bcv_err <= 1e-5, f"{tag}: bcv max abs err {bcv_err}")
+        rec["slack_ratio"] = float(got[1].max()) / float(want[1].max())
+        check(ratio_range[0] < rec["slack_ratio"] < ratio_range[1],
+              f"{tag}: slack ratio {rec['slack_ratio']}")
+        for what, i, rel in (("slack", 1, SLACK_REL[kname]),
+                             ("bcv", 2, BCV_REL)):
+            rec.update(check_diagnostic(tag, what, got[i], want[i], rel))
+        del got, want
+        got_b, want_b = (fn(nodal, *skewed_args, **kw)[2]
+                         for fn in (wrapper, ref))
+        size = float(want_b.max())
+        check(float(want_b.median()) > 1e-3,
+              f"{tag}: scaling B left bcv at {size}")
+        rec["bcv_skewed_rel_err"] = max_err(got_b, want_b) / size
+        check(rec["bcv_skewed_rel_err"] <= BCV_SKEWED_REL,
+              f"{tag}: bcv with B scaled by 1.5 differs from the plain "
+              f"version by {rec['bcv_skewed_rel_err']} of its size {size} "
+              f"(> {BCV_SKEWED_REL})")
+        del got_b, want_b
+    else:
+        check(got[1] is None and got[2] is None,
+              f"{tag}: diagnostics returned without being asked for")
+        del got, want
+    zero = torch.zeros_like(nodal)
+    w_rhs = wrapper(zero, *rhs_args, **kw)[0]
+    w_rhs_plain = ref(zero, *rhs_args, **kw)[0]
+    rec["rhs_size"] = float(w_rhs_plain.abs().max())
+    check(rec["rhs_size"] > 0, f"{tag}: the plain version's rhs part is zero")
+    rec["rhs_rel_err"] = max_err(w_rhs, w_rhs_plain) / rec["rhs_size"]
+    check(rec["rhs_rel_err"] <= RHS_REL_TOL, f"{tag}: rhs part of w differs "
+          f"from the plain version by {rec['rhs_rel_err']} of its size "
+          f"{rec['rhs_size']} (> {RHS_REL_TOL})")
+    return rec
+
+
 def phase_kernels_2d(device="cuda"):
     """Each 2D kernel's public wrapper against its plain version on the
     same inputs at 1024 x 1024 quads: on main-path-shaped nodal values
@@ -613,9 +695,6 @@ def phase_kernels_2d(device="cuda"):
     vops = H2.prepare_shared_2d(vc, cfg)[0].to(device)
     fem_inh, fem_vc = nodal_grid_2d(inh, device), nodal_grid_2d(vc, device)
     tail = (geom, N2D, N2D, t_int, bpts)
-
-    def zero_g(x, y):
-        return torch.zeros_like(x + y)
 
     def shared_args(o, p, g_fn):
         return (o, p.f, g_fn) + tail
@@ -655,65 +734,18 @@ def phase_kernels_2d(device="cuda"):
         args = args_for(bundle, problem, problem.g)
         kern = functools.partial(wrapper, nodal, *args, **kw)
         plain = functools.partial(ref, nodal, *args, **kw)
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        check(got[0].shape == want[0].shape == (E, M2D * M2D),
-              f"{tag}: w shape {tuple(got[0].shape)}")
-        check(bool(torch.isfinite(got[0]).all()), f"{tag}: non-finite w")
-        err = max_err(got[0], want[0])
-        check(err <= w_tol, f"{tag}: w max abs err {err} > {w_tol}")
-        slack_ratio, diag = None, {}
-        if rng is not None:
-            bcv_err = max_err(got[2], want[2])
-            check(bcv_err <= 1e-5, f"{tag}: bcv max abs err {bcv_err}")
-            slack_ratio = float(got[1].max()) / float(want[1].max())
-            check(rng[0] < slack_ratio < rng[1],
-                  f"{tag}: slack ratio {slack_ratio}")
-            for what, i, rel in (("slack", 1, SLACK_REL[kname]),
-                                 ("bcv", 2, BCV_REL)):
-                diag.update(check_diagnostic(tag, what, got[i], want[i], rel))
-            # A sound solve meets its trace constraints, so bcv above is
-            # rounding alone.  With B scaled by 1.5 (it enters nothing but
-            # bcv) the same function gives bcv ~ max |bc| / 2 on every
-            # quad, and the kernel has to agree quad by quad.
-            skewed = args_for(dataclasses.replace(bundle, B=1.5 * bundle.B),
-                              problem, problem.g)
-            got_b, want_b = (fn(nodal, *skewed, **kw)[2]
-                             for fn in (wrapper, ref))
-            size = float(want_b.max())
-            check(float(want_b.median()) > 1e-3,
-                  f"{tag}: scaling B left bcv at {size}")
-            diag["bcv_skewed_rel_err"] = max_err(got_b, want_b) / size
-            check(diag["bcv_skewed_rel_err"] <= BCV_SKEWED_REL,
-                  f"{tag}: bcv with B scaled by 1.5 differs from the plain "
-                  f"version by {diag['bcv_skewed_rel_err']} of its size "
-                  f"{size} (> {BCV_SKEWED_REL})")
-            del got_b, want_b
-        else:
-            check(got[1] is None and got[2] is None,
-                  f"{tag}: diagnostics returned without being asked for")
-        del got, want
-        zero = torch.zeros_like(nodal)
-        rhs_only = args_for(bundle, problem, zero_g)
-        w_rhs = wrapper(zero, *rhs_only, **kw)[0]
-        w_rhs_plain = ref(zero, *rhs_only, **kw)[0]
-        size = float(w_rhs_plain.abs().max())
-        check(size > 0, f"{tag}: the plain version's rhs part is zero")
-        rhs_rel = max_err(w_rhs, w_rhs_plain) / size
-        check(rhs_rel <= RHS_REL_TOL, f"{tag}: rhs part of w differs from "
-              f"the plain version by {rhs_rel} of its size {size} "
-              f"(> {RHS_REL_TOL})")
-        del w_rhs, w_rhs_plain
-        ms, kernel_ms = device_ms(kern, kname, reps=REPS_2D)
-        plain_ms, _ = device_ms(plain, reps=REPS_2D)
+        rec = check_kernel_against_plain(
+            tag, wrapper, ref, kname, nodal, args, kw, (E, M2D * M2D), w_tol,
+            rng, args_for(dataclasses.replace(bundle, B=1.5 * bundle.B),
+                          problem, problem.g),
+            args_for(bundle, problem, zero_g_2d))
+        rec["ms"], rec["kernel_ms"] = device_ms(kern, kname, reps=REPS_2D)
+        rec["plain_ms"] = device_ms(plain, reps=REPS_2D)[0]
         method = kw.get("method", "sne")
-        bound_ms, bound_by = bound(*work_2d(name, method, vops.n_terms))
-        rec = dict(max_abs_err=err, slack_ratio=slack_ratio, **diag,
-                   rhs_rel_err=rhs_rel, ms=ms,
-                   kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=bound_by)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            *work_2d(name, method, vops.n_terms))
         emit("kernel", name=name, variant=variant, nx=N2D, ny=N2D, M=M2D,
-             C=C2D, rhs_size=size, wall_ms=cuda_ms(kern, reps=REPS_2D),
+             C=C2D, wall_ms=cuda_ms(kern, reps=REPS_2D),
              plain_wall_ms=cuda_ms(plain, reps=REPS_2D), **rec)
         if name not in summary:
             summary[name] = dict(rec, library_ms=None)
@@ -787,20 +819,25 @@ def solve_2d(name, device, n=N2D, **kw):
     return s, sol, time.perf_counter() - t0
 
 
-def gate_2d(label, s, x, y, n=N2D):
-    """Shape, finiteness and the Linf gate of the solver's 2D solution."""
+def gate(label, s, sol, pts, gates, shape, maxiter):
+    """Shape, finiteness, solve_ok, convergence and the Linf gate."""
     import torch
 
-    coeffs = s.solution.coeffs
-    check(tuple(coeffs.shape) == (n, n, M2D, M2D),
-          f"{label}: coeffs shape {tuple(coeffs.shape)}")
-    check(bool(torch.isfinite(coeffs).all()), f"{label}: non-finite")
+    check(tuple(sol.coeffs.shape) == shape,
+          f"{label}: coeffs shape {tuple(sol.coeffs.shape)}")
+    check(bool(torch.isfinite(sol.coeffs).all()), f"{label}: non-finite")
+    check(bool(sol.solve_ok.all()), f"{label}: "
+          f"{int((~sol.solve_ok).sum())} elements fell back")
+    check(sol.cg_iters < maxiter, f"{label}: the coarse solve did not "
+          f"converge in {maxiter} iterations")
     t0 = time.perf_counter()
-    linf, l2 = (float(v) for v in s.errors(x, y))
+    linf, l2 = (float(v) for v in s.errors(*pts))
     errors_s = time.perf_counter() - t0
-    gate = GATES_2D[label]
-    check(linf < gate, f"{label}: Linf {linf} >= gate {gate}")
-    return dict(linf=linf, l2=l2, gate=gate, errors_s=errors_s)
+    check(linf < gates[label], f"{label}: Linf {linf} >= gate "
+          f"{gates[label]}")
+    return dict(linf=linf, l2=l2, gate=gates[label], errors_s=errors_s,
+                cg_iters=sol.cg_iters, cg_residual=float(sol.cg_residual),
+                max_bc_violation=float(sol.bc_violation.max()))
 
 
 def phase_main_path_2d(device="cuda", gate_basis=False):
@@ -818,15 +855,12 @@ def phase_main_path_2d(device="cuda", gate_basis=False):
     for label, name, kw in runs_2d():
         before = dict(K2.launch_counts())
         s, sol, solve_s = solve_2d(name, device, backend="cuda", **kw)
-        check(bool(sol.solve_ok.all()), f"{label}: "
-              f"{int((~sol.solve_ok).sum())} quads fell back")
-        rec = gate_2d(label, s, x, y)
+        rec = gate(label, s, sol, (x, y), GATES_2D, (N2D, N2D, M2D, M2D),
+                   s.config.cg_maxiter)
         launched = {k: v - before[k] for k, v in K2.launch_counts().items()
                     if v != before[k]}
         check(sum(launched.values()) == 1, f"{label}: launches {launched}")
         emit("main_path_2d", run=label, nx=N2D, ny=N2D, solve_s=solve_s,
-             cg_iters=sol.cg_iters, cg_residual=float(sol.cg_residual),
-             max_bc_violation=float(sol.bc_violation.max()),
              launched=launched, **rec)
         if label == "poisson_2d":
             # The same nodal values through enhance_2d with a bundle that
@@ -842,7 +876,8 @@ def phase_main_path_2d(device="cuda", gate_basis=False):
             s.solution = sol._replace(coeffs=coeffs)
             emit("main_path_2d", run="poisson_2d/shared_2d",
                  vs_stacked_max_abs=agree,
-                 **gate_2d("poisson_2d/shared_2d", s, x, y))
+                 **gate("poisson_2d/shared_2d", s, s.solution, (x, y),
+                        GATES_2D, (N2D, N2D, M2D, M2D), s.config.cg_maxiter))
         del s, sol
     counts = K2.launch_counts()
     if gate_basis:
@@ -951,6 +986,467 @@ def phase_stages_2d(device="cuda"):
          host_reads=reads, host_read_wait_ms=read_ms, spans=spans)
 
 
+# ----------------------------------------------- graded 2D and 3D phases
+
+def graded_axis_nodes(n, d0, d1, power):
+    """Power-law stretched nodes on [d0, d1], clustered toward the centre
+    for power > 1 (a copy of the JAX package's cli._graded_axis_nodes)."""
+    import numpy as np
+
+    s = np.linspace(-1.0, 1.0, n + 1)
+    t = np.sign(s) * np.abs(s) ** power
+    return d0 + 0.5 * (t + 1.0) * (d1 - d0)
+
+
+def graded_mesh(n=None):
+    nodes = graded_axis_nodes(n or NG, -1.0, 1.0, GRADED_POWER)
+    return nodes, nodes.copy()
+
+
+def work_graded_2d(var):
+    """(bytes, flops) of fused_enhance_graded_2d at NG x NG quads, (M2D,
+    C2D), with diagnostics: G formed once from the five blocks, g from the
+    trace, two Gram-Schmidt passes, Q^T g and R, w = Pbc bc + Z y, B w and
+    the final residual."""
+    E = NG * NG
+    M2, C2, Kb = M2D * M2D, C2D * C2D, 4 * M2D - 4
+    K = M2 - Kb
+    nbytes = 4 * ((NG + 1) ** 2 + 2 * (NG + 1) + 4 * Kb * NG
+                  + (4 if var else 1) * C2 * E + E * M2 + 2 * E)
+    ops = (5 * C2 * K + 5 * C2 * Kb  # G; g = f / s2 - sum_s c_s AP_s bc
+           + 2 * K * K * C2 + C2 * K + K * K // 2  # CGS2, Q^T g, R^-1
+           + M2 * (Kb + K) + Kb * M2 + C2 * K)  # w, B w, the residual
+    return nbytes, 2 * E * ops
+
+
+def work_3d():
+    """(bytes, flops) of fused_enhance_stacked_3d at N3D^3 hexes, (M3D,
+    C3D), with diagnostics: the [M^3 + C^3, C^3 + S] product and B w."""
+    E = N3D ** 3
+    M3, C3 = M3D ** 3, C3D ** 3
+    S = M3 - (M3D - 2) ** 3
+    nbytes = 4 * ((N3D + 1) ** 3 + 6 * S * N3D * N3D + C3 * E + E * M3
+                  + 2 * E)
+    return nbytes, 2 * E * ((M3 + C3) * (C3 + S) + S * M3)
+
+
+def nodal_grid_graded(problem, xs, ys, device):
+    """The exact solution on the graded nodes plus noise on the interior
+    ones, float32 (seed 0)."""
+    import torch
+
+    g = torch.Generator().manual_seed(0)
+    Y, X = torch.meshgrid(torch.tensor(ys), torch.tensor(xs), indexing="ij")
+    u = problem.exact(X, Y).clone()
+    u[1:-1, 1:-1] += 1e-3 * torch.randn(len(ys) - 2, len(xs) - 2,
+                                        generator=g, dtype=torch.float64)
+    return u.to(device=device, dtype=torch.float32).contiguous()
+
+
+def nodal_grid_3d(problem, device, n=None):
+    """The exact solution on the (n+1)^3 nodes plus noise on the interior
+    ones, float32 (seed 0)."""
+    import torch
+
+    n = n or N3D
+    g = torch.Generator().manual_seed(0)
+    xs = torch.linspace(-1.0, 1.0, n + 1, dtype=torch.float64)
+    Z, Y, X = torch.meshgrid(xs, xs, xs, indexing="ij")
+    u = problem.exact(X, Y, Z)
+    u[1:-1, 1:-1, 1:-1] += 1e-3 * torch.randn(n - 1, n - 1, n - 1,
+                                              generator=g,
+                                              dtype=torch.float64)
+    return u.to(device=device, dtype=torch.float32).contiguous()
+
+
+def zero_g_2d(x, y):
+    import torch
+
+    return torch.zeros_like(x + y)
+
+
+def zero_g_3d(x, y, z):
+    import torch
+
+    return torch.zeros_like(x + y + z)
+
+
+def phase_kernels_graded_2d(device="cuda"):
+    """fused_enhance_graded_2d against its plain version at 1024 x 1024
+    quads on the power-law mesh, M = C = 6, for variable coefficients (a,
+    a_x, a_y sampled) and constant ones (advection): the checks of
+    check_kernel_against_plain at tests/test_pallas.py:383's tolerances (w
+    3e-5, bcv 1e-5, slack ratio in (0.2, 5)), then device times."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch import Solver2DConfig, get_problem_2d
+    from hybrid_fem_lssvr_tpu_torch.models import hybrid2d_graded as HG
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d_graded as KG
+
+    xs_np, ys_np = graded_mesh()
+    xs = torch.tensor(xs_np, dtype=torch.float32, device=device)
+    ys = torch.tensor(ys_np, dtype=torch.float32, device=device)
+    cfg = Solver2DConfig(M=M2D, n_colloc=C2D, dtype="float32")
+    name = "fused_enhance_graded_2d"
+    summary = {}
+    for pname in ("variable_coeff_elliptic_2d", "advection_diffusion_2d"):
+        problem = get_problem_2d(pname)
+        gops, (t_int, bpts) = HG.prepare_shared_2d_graded(problem, cfg)
+        gops = gops.to(device)
+        nodal = nodal_grid_graded(problem, xs_np, ys_np, device)
+        tail = (xs, ys, NG, NG, t_int, bpts)
+        args = (gops, problem) + tail
+        skewed = (dataclasses.replace(gops, B=1.5 * gops.B), problem) + tail
+        rhs_only = (gops, dataclasses.replace(problem, g=zero_g_2d)) + tail
+        rec = check_kernel_against_plain(
+            f"{name}/{pname}", KG.fused_enhance_graded_2d,
+            KG.fused_enhance_graded_2d_ref, "graded2d_kernel", nodal, args,
+            {}, (NG * NG, M2D * M2D), 3e-5, (0.2, 5.0), skewed, rhs_only)
+        kern = functools.partial(KG.fused_enhance_graded_2d, nodal, *args)
+        plain = functools.partial(KG.fused_enhance_graded_2d_ref, nodal,
+                                  *args)
+        rec["ms"], rec["kernel_ms"] = device_ms(kern, "graded2d_kernel",
+                                                reps=REPS_2D)
+        rec["plain_ms"] = device_ms(plain, reps=2)[0]
+        var = problem.a_var is not None
+        rec["bound_ms"], rec["bound_by"] = bound(*work_graded_2d(var))
+        emit("kernel", name=name, variant=pname, nx=NG, ny=NG, M=M2D,
+             C=C2D, grading=f"power {GRADED_POWER}",
+             wall_ms=cuda_ms(kern, reps=REPS_2D),
+             plain_wall_ms=cuda_ms(plain, reps=2), **rec)
+        # No single PyTorch call does the per-quad factorisation.
+        summary.setdefault(name, dict(rec, library_ms=None))
+        torch.cuda.empty_cache()
+    return summary
+
+
+def phase_kernels_3d(device="cuda"):
+    """fused_enhance_stacked_3d against its plain version at 128^3 hexes,
+    M = C = 4, on poisson_3d (g = 0) and poisson_3d_inhomogeneous (g on
+    every face), with and without the structured rhs: the checks of
+    check_kernel_against_plain at tests/test_pallas.py:274's tolerances
+    (w 2e-5, bcv 1e-5, slack ratio in (0.05, 20)), device times, and one
+    torch.mm of the stacked operator on a prebuilt z as the yardstick."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch import Solver3DConfig, get_problem_3d
+    from hybrid_fem_lssvr_tpu_torch.models import hybrid3d as H3
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels3d as K3
+
+    n = N3D
+    h = 2.0 / n
+    geom = (-1.0, h, -1.0, h, -1.0, h)
+    cfg = Solver3DConfig(nx=n, ny=n, nz=n, M=M3D, n_colloc=C3D,
+                         dtype="float32")
+    name = "fused_enhance_stacked_3d"
+    cases = [("poisson_3d", True, True), ("poisson_3d", False, True),
+             ("poisson_3d_inhomogeneous", True, True),
+             ("poisson_3d_inhomogeneous", False, True),
+             ("poisson_3d_inhomogeneous", True, False)]
+    summary, bundles = {}, {}
+    for pname, shifted, diag in cases:
+        problem = get_problem_3d(pname)
+        if pname not in bundles:
+            ops, (t_int, spts) = H3.prepare_shared_3d(problem, cfg)
+            bundles[pname] = (ops.to(device), t_int, spts,
+                              nodal_grid_3d(problem, device))
+        ops, t_int, spts, nodal = bundles[pname]
+        tail = (geom, n, n, n, t_int, spts)
+        args = (ops, problem.f, problem.g) + tail
+        kw = dict(with_diagnostics=diag,
+                  f_shifted_fn=problem.f_shifted if shifted else None)
+        variant = (f"{pname}/{'f_shifted' if shifted else 'f'}"
+                   f"{'' if diag else '/no diagnostics'}")
+        rec = check_kernel_against_plain(
+            f"{name}/{variant}", K3.fused_enhance_stacked_3d,
+            K3.fused_enhance_stacked_3d_ref, "stacked3d_kernel", nodal, args,
+            kw, (n ** 3, M3D ** 3), 2e-5, (0.05, 20.0) if diag else None,
+            (dataclasses.replace(ops, B=1.5 * ops.B), problem.f,
+             problem.g) + tail,
+            (ops, problem.f, zero_g_3d) + tail)
+        kern = functools.partial(K3.fused_enhance_stacked_3d, nodal, *args,
+                                 **kw)
+        plain = functools.partial(K3.fused_enhance_stacked_3d_ref, nodal,
+                                  *args, **kw)
+        rec["ms"], rec["kernel_ms"] = device_ms(kern, "stacked3d_kernel",
+                                                reps=REPS_3D)
+        rec["plain_ms"] = device_ms(plain, reps=REPS_3D)[0]
+        rec["bound_ms"], rec["bound_by"] = bound(*work_3d())
+        emit("kernel", name=name, variant=variant, nx=n, ny=n, nz=n, M=M3D,
+             C=C3D, wall_ms=cuda_ms(kern, reps=REPS_3D),
+             plain_wall_ms=cuda_ms(plain, reps=REPS_3D), **rec)
+        if variant == "poisson_3d_inhomogeneous/f_shifted":
+            summary[name] = dict(rec, library_ms=None)
+        torch.cuda.empty_cache()
+    # The yardstick: one torch.mm of the stacked operator on a prebuilt
+    # z = [f; bc] (the main path's inputs, sampled beforehand).
+    problem = get_problem_3d("poisson_3d_inhomogeneous")
+    ops, t_int, spts, nodal = bundles["poisson_3d_inhomogeneous"]
+    f, gface, pts = K3._inputs(nodal, ops, problem.f, problem.g, geom, n, n,
+                               n, t_int, spts, problem.f_shifted)
+    z = torch.cat([f, K3._trace_bc(nodal, gface, pts, n, n, n)])
+    del f
+    O = K3._stacked_operator(ops.Wf, ops.Wbc, ops.Pres, ops.Qres,
+                             True).contiguous()
+    summary[name]["library_ms"] = device_ms(
+        functools.partial(torch.mm, O, z), reps=REPS_3D)[0]
+    emit("library", name=name, call=f"torch.mm({list(O.shape)}, "
+         f"{list(z.shape)})", library_ms=summary[name]["library_ms"])
+    del z, bundles
+    torch.cuda.empty_cache()
+    return summary
+
+
+# Linf gates of the new paths: 10x what the port's torch route gives for
+# the same configuration on the same card (``--gate-basis``, float32
+# enhancement over a float64 coarse solve, on an H100: graded 4.17e-6 and
+# 4.41e-6; 3D 3.43e-4 and 6.00e-4, the Q1 nodal floor at h = 1/64; variable
+# coefficients at 32^3, which run on the torch route, 5.89e-3).
+GATES_GRADED = {
+    "poisson_2d": 4.2e-5,
+    "variable_coeff_elliptic_2d": 4.5e-5,
+}
+GATES_3D = {
+    "poisson_3d": 3.5e-3,
+    "poisson_3d_inhomogeneous": 6e-3,
+    "variable_coeff_elliptic_3d": 6e-2,
+}
+
+
+def points_3d():
+    import torch
+
+    g = torch.Generator().manual_seed(0)
+    pts = torch.rand(3, POINTS_3D, generator=g, dtype=torch.float64) * 2 - 1
+    return tuple(p.to(torch.float32) for p in pts)
+
+
+def solve_graded(name, device, n=None, **kw):
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch import (HybridSolver2DGraded,
+                                            Solver2DConfig, get_problem_2d)
+
+    cfg = Solver2DConfig(**dict(dict(M=M2D, n_colloc=C2D, dtype="float32",
+                                     fem_dtype="float64",
+                                     cg_maxiter=GRADED_CG_MAXITER), **kw))
+    xs, ys = graded_mesh(n or NG)
+    t0 = time.perf_counter()
+    s = HybridSolver2DGraded(get_problem_2d(name), cfg, xs, ys,
+                             device=device)
+    sol = s.solve()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return s, sol, time.perf_counter() - t0
+
+
+def solve_3d(name, device, n=None, **kw):
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch import (HybridSolver3D, Solver3DConfig,
+                                            get_problem_3d)
+
+    n = n or N3D
+    cfg = Solver3DConfig(**dict(dict(nx=n, ny=n, nz=n, M=M3D, n_colloc=C3D,
+                                     dtype="float32", fem_dtype="float64",
+                                     precond="mg"), **kw))
+    t0 = time.perf_counter()
+    s = HybridSolver3D(get_problem_3d(name), cfg, device=device)
+    sol = s.solve()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return s, sol, time.perf_counter() - t0
+
+
+def phase_main_path_graded_2d(device="cuda", gate_basis=False):
+    """The graded 2D path through HybridSolver2DGraded at 1024 x 1024 quads
+    on the power-law mesh (Jacobi-CG, float64, then the kernel); returns
+    the launch counts of that run.  With ``gate_basis`` each configuration
+    is solved once more through the torch route, for its Linf."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d_graded as KG
+
+    x, y = points_2d()
+    labels = ("poisson_2d", "variable_coeff_elliptic_2d")
+    KG.reset_launch_counts()
+    for label in labels:
+        before = KG.launch_counts()["fused_enhance_graded_2d"]
+        s, sol, solve_s = solve_graded(label, device)
+        rec = gate(label, s, sol, (x, y), GATES_GRADED, (NG, NG, M2D, M2D),
+                   GRADED_CG_MAXITER)
+        launched = KG.launch_counts()["fused_enhance_graded_2d"] - before
+        check(launched == 1, f"graded {label}: {launched} kernel launches")
+        emit("main_path_graded_2d", run=label, nx=NG, ny=NG,
+             grading=f"power {GRADED_POWER}", solve_s=solve_s,
+             launched=launched, **rec)
+        del s, sol
+    counts = KG.launch_counts()
+    if gate_basis:
+        for label in labels:
+            s, sol, solve_s = solve_graded(label, device, backend="torch")
+            linf, l2 = (float(v) for v in s.errors(x, y))
+            emit("gate_basis_graded_2d", run=label, route="torch", linf=linf,
+                 l2=l2, solve_s=solve_s)
+            del s, sol
+            torch.cuda.empty_cache()
+    # GPU (kernel) against CPU (torch route) coefficients at 64 x 64.
+    for label in labels:
+        gpu = solve_graded(label, device, n=64)[1]
+        cpu = solve_graded(label, "cpu", n=64, backend="torch")[1]
+        agree = max_err(gpu.coeffs.cpu(), cpu.coeffs)
+        check(agree < 3e-5, f"graded {label}: GPU vs CPU coeffs differ "
+              f"{agree}")
+        check(abs(gpu.cg_iters - cpu.cg_iters) <= 1, f"graded {label}: cg "
+              f"iters {gpu.cg_iters} on the GPU, {cpu.cg_iters} on the CPU")
+        emit("main_path_graded_2d", run=f"{label}@64",
+             gpu_vs_cpu_max_abs=agree, cg_iters=gpu.cg_iters)
+    check(counts["fused_enhance_graded_2d"] > 0,
+          "fused_enhance_graded_2d was not launched on the graded path")
+    emit("launch_counts_graded_2d", **counts)
+    return counts
+
+
+def phase_main_path_3d(device="cuda", gate_basis=False):
+    """The 3D path through HybridSolver3D at 128^3 hexes (V-cycle CG,
+    float64, then the kernel), and variable coefficients at 32^3 through
+    the torch route (no TPU kernel exists for them); returns the launch
+    counts of that run.  With ``gate_basis`` the kernel configurations are
+    solved once more through the torch route, for their Linf."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels3d as K3
+
+    pts = points_3d()
+    labels = ("poisson_3d", "poisson_3d_inhomogeneous")
+    K3.reset_launch_counts()
+    for label in labels:
+        before = K3.launch_counts()["fused_enhance_stacked_3d"]
+        s, sol, solve_s = solve_3d(label, device)
+        rec = gate(label, s, sol, pts, GATES_3D,
+                   (N3D, N3D, N3D, M3D, M3D, M3D), s.config.cg_maxiter)
+        launched = K3.launch_counts()["fused_enhance_stacked_3d"] - before
+        check(launched == 1, f"3d {label}: {launched} kernel launches")
+        emit("main_path_3d", run=label, n=N3D, precond="mg",
+             solve_s=solve_s, launched=launched, **rec)
+        del s, sol
+    label = "variable_coeff_elliptic_3d"
+    before = K3.launch_counts()["fused_enhance_stacked_3d"]
+    n = N3D_VARCOEFF
+    s, sol, solve_s = solve_3d(label, device, n=n)
+    rec = gate(label, s, sol, pts, GATES_3D, (n, n, n, M3D, M3D, M3D),
+               s.config.cg_maxiter)
+    check(K3.launch_counts()["fused_enhance_stacked_3d"] == before,
+          f"{label}: the kernel ran for variable coefficients")
+    emit("main_path_3d", run=label, n=n, precond="mg", route="torch",
+         solve_s=solve_s, **rec)
+    del s, sol
+    counts = K3.launch_counts()
+    if gate_basis:
+        for label in labels:
+            s, sol, solve_s = solve_3d(label, device, backend="torch")
+            linf, l2 = (float(v) for v in s.errors(*pts))
+            emit("gate_basis_3d", run=label, route="torch", linf=linf, l2=l2,
+                 solve_s=solve_s)
+            del s, sol
+            torch.cuda.empty_cache()
+    # GPU (kernel) against CPU (torch route) coefficients at 16^3.
+    for label in labels:
+        gpu = solve_3d(label, device, n=16)[1]
+        cpu = solve_3d(label, "cpu", n=16, backend="torch")[1]
+        agree = max_err(gpu.coeffs.cpu(), cpu.coeffs)
+        check(agree < 3e-5, f"3d {label}: GPU vs CPU coeffs differ {agree}")
+        check(abs(gpu.cg_iters - cpu.cg_iters) <= 1, f"3d {label}: cg iters "
+              f"{gpu.cg_iters} on the GPU, {cpu.cg_iters} on the CPU")
+        emit("main_path_3d", run=f"{label}@16", gpu_vs_cpu_max_abs=agree,
+             cg_iters=gpu.cg_iters)
+    check(counts["fused_enhance_stacked_3d"] > 0,
+          "fused_enhance_stacked_3d was not launched on the 3D path")
+    emit("launch_counts_3d", **counts)
+    return counts
+
+
+def phase_routes_new(device="cuda"):
+    """The enhancement stage of each new path alone, through its two routes
+    on the same nodal values, in turns (kernel, torch, torch, kernel): what
+    ``backend='auto'`` chooses between.  ``ms`` is the device-busy time of
+    one call, ``wall_ms`` its CUDA-event time with the host's share."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch.models import hybrid2d_graded as HG
+    from hybrid_fem_lssvr_tpu_torch.models import hybrid3d as H3
+
+    s, sol, _ = solve_graded("poisson_2d", device)
+    graded = (lambda cfg: functools.partial(
+        HG.enhance_2d_graded, s.problem, cfg, sol.xs, sol.ys,
+        sol.fem_values, s._shared), s.config, "poisson_2d graded", NG)
+    s3, sol3, _ = solve_3d("poisson_3d", device)
+    hexes = (lambda cfg: functools.partial(
+        H3.enhance_3d, s3.problem, cfg, sol3.xs, sol3.ys, sol3.zs,
+        sol3.fem_values, s3._shared), s3.config, "poisson_3d", N3D)
+    for make, config, label, n in (graded, hexes):
+        recs = {"cuda": [], "torch": []}
+        for backend in ("cuda", "torch", "torch", "cuda"):
+            fn = make(dataclasses.replace(config, backend=backend))
+            reps = 2 if backend == "torch" else REPS_2D
+            recs[backend].append((device_ms(fn, reps=reps)[0],
+                                  cuda_ms(fn, reps=reps)))
+            torch.cuda.empty_cache()
+        emit("routes_new", run=label, n=n,
+             **{f"{b}_{k}": [r[i] for r in recs[b]]
+                for b in recs for i, k in enumerate(("ms", "wall_ms"))})
+    del s, sol, s3, sol3
+    torch.cuda.empty_cache()
+
+
+def phase_stages_3d(device="cuda"):
+    """Where the poisson_3d solve at 128^3 hexes spends its time: one
+    HybridSolver3D construction, solve and errors() on the host clock, then
+    once more under torch.profiler, read through the solver's spans
+    (``models/hybrid3d.py`` SPANS)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hybrid_fem_lssvr_tpu_torch.models import hybrid3d as H3
+
+    pts = points_3d()
+    iters = []
+
+    def run():
+        s, sol, _ = solve_3d("poisson_3d", device)
+        iters.append(sol.cg_iters)
+        return [float(v) for v in s.errors(*pts)]  # synchronises
+
+    run()  # warm-up
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    spans = {name: dict(host_ms=0.0, device_ms=0.0) for name in H3.SPANS}
+    launches = 0
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            launches += e.name not in spans
+        elif e.device_type == cpu and e.name in spans:
+            spans[e.name]["host_ms"] += e.time_range.elapsed_us() / 1e3
+            spans[e.name]["device_ms"] += e.device_time_total / 1e3
+    for name, rec in spans.items():
+        check(rec["host_ms"] > 0, f"span {name} not seen by the profiler")
+    check(spans["enhance_3d"]["device_ms"] > 0,
+          "the profiler attributed no device time to enhance_3d")
+    busy = busy_ms(events, skip=H3.SPANS)
+    emit("stages_3d", run="poisson_3d", n=N3D, wall_ms=wall_ms,
+         profiled_wall_ms=profiled_ms, device_busy_ms=busy,
+         device_idle_share=1.0 - busy / wall_ms, cg_iters=iters[-1],
+         device_ops=launches, spans=spans)
+
+
 def main():
     import torch
 
@@ -983,6 +1479,15 @@ def main():
     phase_routes_2d()
     phase_stages()
     phase_stages_2d()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    summary.update(phase_kernels_graded_2d())
+    summary.update(phase_kernels_3d())
+    gate_basis = "--gate-basis" in sys.argv
+    counts.update(phase_main_path_graded_2d(gate_basis=gate_basis))
+    counts.update(phase_main_path_3d(gate_basis=gate_basis))
+    phase_routes_new()
+    phase_stages_3d()
     torch.cuda.synchronize()
 
     check(sorted(summary) == sorted(KERNELS), f"kernels checked: "

@@ -4,9 +4,11 @@ A port of ``hybrid_fem_lssvr_tpu`` (JAX) to PyTorch and hand-written CUDA
 kernels for NVIDIA Hopper GPUs.  A coarse finite-element solve gives nodal
 values; an independent least-squares (LSSVR) problem per element, with a
 Legendre basis and its boundary pinned to the FEM values, reconstructs a
-high-order solution.  This package covers the 1D solver (``HybridSolver``)
-and the 2D structured-quad solver (``HybridSolver2D``); the JAX package
-remains the reference for everything else.
+high-order solution.  This package covers the 1D solver (``HybridSolver``),
+the 2D structured-quad solver (``HybridSolver2D``), its graded-mesh variant
+(``HybridSolver2DGraded``) and the 3D structured-hex solver
+(``HybridSolver3D``); the JAX package remains the reference for everything
+else.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; on a
 machine without a GPU they raise instead of falling back.
@@ -17,9 +19,13 @@ from .models.hybrid import HybridSolver, Solution, SolverConfig, hybrid_solve
 from .models.hybrid2d import (HybridSolver2D, Problem2D, Solution2D,
                               Solver2DConfig, get_problem_2d,
                               hybrid_solve_2d)
+from .models.hybrid2d_graded import HybridSolver2DGraded
+from .models.hybrid3d import (HybridSolver3D, Problem3D, Solution3D,
+                              Solver3DConfig, get_problem_3d,
+                              hybrid_solve_3d)
 from .models.problem import Problem1D
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 __all__ = [
     "HybridSolver",
@@ -34,4 +40,11 @@ __all__ = [
     "Problem2D",
     "get_problem_2d",
     "hybrid_solve_2d",
+    "HybridSolver2DGraded",
+    "HybridSolver3D",
+    "Solver3DConfig",
+    "Solution3D",
+    "Problem3D",
+    "get_problem_3d",
+    "hybrid_solve_3d",
 ]

@@ -11,8 +11,8 @@ element: 00=(y_j,x_i), 10=(y_j,x_{i+1}), 01=(y_{j+1},x_i), 11=(y_{j+1},x_{i+1}).
 
 The local 4x4 matrices are host numpy float64 (setup-time); ``local_tensor``
 carries one to the run device.  ``q1_reference_parts`` and
-``q1_reference_quad_parts`` of the JAX module serve the graded solver and
-are not ported yet.
+``q1_reference_quad_parts`` serve the graded solver
+(``models/hybrid2d_graded.py``).
 """
 
 from __future__ import annotations
@@ -133,6 +133,50 @@ def q1_varcoeff_parts(hx: float, hy: float, quad_order: int = 2):
             dxq.append((xi + 1.0) * 0.5 * hx)
             dyq.append((eta + 1.0) * 0.5 * hy)
     return np.stack(S), np.array(dxq), np.array(dyq)
+
+
+@functools.lru_cache(maxsize=None)
+def q1_reference_parts(quad_order: int = 2):
+    """Reference-element 4x4 operator parts over [-1, 1]^2: ``Cxx`` =
+    int dN/dxi dN/dxi, ``Cyy`` = int dN/deta dN/deta, ``Mhat`` = int N N,
+    ``Chatx`` = int N dN/dxi, ``Chaty`` = int N dN/deta.  The physical local
+    operator on an hx x hy rectangle is the exact scaling
+
+        K_e = a0 (hy/hx) Cxx + a0 (hx/hy) Cyy + c (hx hy / 4) Mhat
+              + bx (hy/2) Chatx + by (hx/2) Chaty
+
+    (per-element scalars, so graded tensor-product meshes assemble
+    matrix-free through ``apply_stiffness_var`` with these as the S_q
+    stack)."""
+    t, w = _rule(quad_order)
+    Cxx, Cyy, Mh, Cx, Cy = (np.zeros((4, 4)) for _ in range(5))
+    for xi, wx in zip(t, w):
+        for eta, wy in zip(t, w):
+            N, dN_dxi, dN_deta = _q1_shape(xi, eta)
+            Cxx += wx * wy * np.outer(dN_dxi, dN_dxi)
+            Cyy += wx * wy * np.outer(dN_deta, dN_deta)
+            Mh += wx * wy * np.outer(N, N)
+            Cx += wx * wy * np.outer(N, dN_dxi)
+            Cy += wx * wy * np.outer(N, dN_deta)
+    return Cxx, Cyy, Mh, Cx, Cy
+
+
+@functools.lru_cache(maxsize=None)
+def q1_reference_quad_parts(quad_order: int = 2):
+    """Per-quadrature-point reference gradient products for graded
+    variable-coefficient stiffness: ``Sxx[q] = w_q dN/dxi dN/dxi(xi_q)``,
+    ``Syy[q]`` likewise, and the reference coordinates ``tq [Q, 2]``
+    ((xi, eta)) of the points.  On an hx x hy rectangle, -div(a grad u)
+    has ``K_e = sum_q a(x_q^e) [(hy/hx) Sxx[q] + (hx/hy) Syy[q]]``."""
+    t, w = _rule(quad_order)
+    Sxx, Syy, tq = [], [], []
+    for xi, wx in zip(t, w):
+        for eta, wy in zip(t, w):
+            _, dN_dxi, dN_deta = _q1_shape(xi, eta)
+            Sxx.append(wx * wy * np.outer(dN_dxi, dN_dxi))
+            Syy.append(wx * wy * np.outer(dN_deta, dN_deta))
+            tq.append((xi, eta))
+    return np.stack(Sxx), np.stack(Syy), np.array(tq)
 
 
 def local_tensor(K_np, like: torch.Tensor) -> torch.Tensor:

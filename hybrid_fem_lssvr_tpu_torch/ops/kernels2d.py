@@ -272,6 +272,13 @@ def check_shape(name, M, C):
 def check_kernel_inputs(name, fem_values, M, C, *tensors):
     """What the CUDA kernels take: contiguous float32 CUDA tensors on one
     device and an (M, C) pair in ``SHAPES``.  Raises ValueError otherwise."""
+    check_tensors(name, fem_values, *tensors)
+    check_shape(name, M, C)
+
+
+def check_tensors(name, fem_values, *tensors):
+    """Raises ValueError unless ``fem_values`` and ``tensors`` are
+    contiguous float32 tensors on one CUDA device."""
     if fem_values.device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got "
                          f"{fem_values.device}")
@@ -282,7 +289,6 @@ def check_kernel_inputs(name, fem_values, M, C, *tensors):
         if not t.is_contiguous() or t.device != fem_values.device:
             raise ValueError(f"{name}: inputs must be contiguous and on "
                              f"{fem_values.device}")
-    check_shape(name, M, C)
 
 
 def _checked_lib(name, source, M, C):

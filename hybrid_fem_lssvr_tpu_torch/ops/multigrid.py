@@ -1,8 +1,8 @@
-"""Geometric multigrid V-cycle preconditioner for the 2D Q1 coarse solve.
+"""Geometric multigrid V-cycle preconditioners for the 2D and 3D Q1 coarse
+solves.
 
-PyTorch counterpart of the 2D part of
-``hybrid_fem_lssvr_tpu/ops/multigrid.py`` (the 3D functions are not ported
-yet).  A standard V-cycle — weighted-Jacobi smoothing, full-weighting
+PyTorch counterpart of ``hybrid_fem_lssvr_tpu/ops/multigrid.py``.  A
+standard V-cycle — weighted-Jacobi smoothing, full-weighting
 restriction R = P^T, bilinear prolongation, rediscretised coarse operators —
 bounds the preconditioned CG iteration count independently of the mesh
 size, where Jacobi-CG grows like O(N).
@@ -14,10 +14,11 @@ reshapes work around a TPU lowering and compute the same values).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import assembly2d
+from . import assembly2d, assembly3d
 
 
 def _fw_rows(x: torch.Tensor) -> torch.Tensor:
@@ -126,6 +127,106 @@ def make_vcycle(ny1: int, nx1: int, K_loc, dtype, nu: int = 2,
         rc = torch.where(masks[lvl + 1], restrict_full_weighting(res), 0.0)
         ec = vcycle(rc, lvl + 1)
         u = u + torch.where(masks[lvl], prolong_bilinear(ec), 0.0)
+        return smooth(u, r, lvl, nu)
+
+    return vcycle
+
+
+def restrict_full_weighting_3d(r: torch.Tensor) -> torch.Tensor:
+    """[nf+1]^3 fine residual -> [nf/2+1]^3 via R = P^T (separable
+    [1 2 1]/2 per axis)."""
+    rp = F.pad(r, (1, 1, 1, 1, 1, 1))
+    a = _fw_rows(rp)
+    b = _fw_rows(a.movedim(1, 0)).movedim(0, 1)
+    return _fw_rows(b.movedim(2, 0)).movedim(0, 2)
+
+
+def prolong_trilinear(c: torch.Tensor) -> torch.Tensor:
+    """[nc+1]^3 coarse field -> [2nc+1]^3 trilinear interpolation
+    (separable interleave per axis)."""
+
+    def up(x):
+        return _interleave_rows(x, 0.5 * (x[:-1] + x[1:]))
+
+    a = up(c)
+    b = up(a.movedim(1, 0)).movedim(0, 1)
+    return up(b.movedim(2, 0)).movedim(0, 2)
+
+
+def _interior_3d(shape, device):
+    m = torch.zeros(shape, dtype=torch.bool, device=device)
+    m[1:-1, 1:-1, 1:-1] = True
+    return m
+
+
+def make_vcycle_3d(nz1: int, ny1: int, nx1: int, K_loc, dtype, nu: int = 2,
+                   omega: float = 0.8, coarsest: int = 5,
+                   coarse_sweeps: int = 60, loc_for_level=None,
+                   apply_diag_for_level=None, device=None):
+    """3D analog of ``make_vcycle``: V(nu, nu) on the Dirichlet-interior Q1
+    hex system.  ``loc_for_level(lvl)`` returns the rediscretised local 8x8
+    at level ``lvl`` (spacing 2**lvl x fine), needed whenever the operator
+    has terms that scale differently with h (mass ~ h^3, convection ~ h^2,
+    stiffness ~ h).  Without it the pure a0-Laplacian scaling is applied:
+    every term of the 3D Q1 stiffness scales like h, so
+    K_loc(2^l h) = 2^l K_loc(h) exactly (reusing the fine K_loc unscaled
+    makes each coarse correction wrong by 2x per level).  For operators
+    without a shared local 8x8 (variable coefficients), pass
+    ``apply_diag_for_level(lvl, shape)`` returning ``(apply_fn,
+    diag_tensor)``."""
+    shapes = [(nz1, ny1, nx1)]
+    while (all((s - 1) % 2 == 0 for s in shapes[-1])
+           and min(shapes[-1]) - 1 > coarsest):
+        shapes.append(tuple((s - 1) // 2 + 1 for s in shapes[-1]))
+    masks = [_interior_3d(s, device) for s in shapes]
+    if apply_diag_for_level is not None:
+        applies, raw_diags = zip(*[
+            apply_diag_for_level(i, shapes[i]) for i in range(len(shapes))
+        ])
+        diags = [torch.where(masks[i], raw_diags[i], 1.0)
+                 for i in range(len(shapes))]
+
+        def apply_A(u, lvl):
+            return torch.where(masks[lvl], applies[lvl](u * masks[lvl]), 0.0)
+    else:
+        if loc_for_level is None:
+            locs = [np.asarray(K_loc) * 2.0 ** lvl
+                    for lvl in range(len(shapes))]
+        else:
+            locs = [loc_for_level(lvl) for lvl in range(len(shapes))]
+        diags = [
+            torch.where(
+                masks[lvl],
+                assembly3d.stiffness_diag_3d(shapes[lvl], locs[lvl], dtype,
+                                             device),
+                1.0,
+            )
+            for lvl in range(len(shapes))
+        ]
+
+        def apply_A(u, lvl):
+            return torch.where(
+                masks[lvl],
+                assembly3d.apply_stiffness_3d(u * masks[lvl], locs[lvl]),
+                0.0,
+            )
+
+    def smooth(u, r, lvl, sweeps):
+        for _ in range(sweeps):
+            u = u + omega * torch.where(
+                masks[lvl], (r - apply_A(u, lvl)) / diags[lvl], 0.0
+            )
+        return u
+
+    def vcycle(r, lvl=0):
+        u = smooth(torch.zeros_like(r), r, lvl, nu)
+        if lvl == len(shapes) - 1:
+            return smooth(u, r, lvl, coarse_sweeps - nu)
+        res = torch.where(masks[lvl], r - apply_A(u, lvl), 0.0)
+        rc = torch.where(masks[lvl + 1], restrict_full_weighting_3d(res),
+                         0.0)
+        ec = vcycle(rc, lvl + 1)
+        u = u + torch.where(masks[lvl], prolong_trilinear(ec), 0.0)
         return smooth(u, r, lvl, nu)
 
     return vcycle

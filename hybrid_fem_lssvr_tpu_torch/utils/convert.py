@@ -2,9 +2,10 @@
 
 The solver has no learned weights; its "parameters" are the host-f64
 operator bundles: ``SharedOperators`` (the shared affine enhancement map,
-1D and 2D), ``VarCoeffOperators`` (the statics of the 1D per-element
-kernel) and ``VarCoeff2DOperators`` (the operator parts of the 2D
-per-element solve).  Their JAX counterparts are converted field by field,
+1D, 2D and 3D), ``VarCoeffOperators`` (the statics of the 1D per-element
+kernel), ``VarCoeff2DOperators`` and ``VarCoeff3DOperators`` (the operator
+parts of the 2D and 3D per-element solves) and ``Graded2DOperators`` (the
+reference parts of the graded 2D solve).  Their JAX counterparts are converted field by field,
 through a dict of numpy arrays made with ``np.asarray`` on each field, e.g.
 
     arrays = {k: np.asarray(v) for k, v in jax_ops._asdict().items()
@@ -20,6 +21,8 @@ import numpy as np
 import torch
 
 from ..models.hybrid2d import VarCoeff2DOperators
+from ..models.hybrid2d_graded import Graded2DOperators
+from ..models.hybrid3d import VarCoeff3DOperators
 from ..ops.kernels import VarCoeffOperators
 from ..ops.kkt import SharedOperators
 
@@ -38,8 +41,9 @@ def shared_operators_from_arrays(arrays: dict, device=None,
                                  dtype=torch.float32) -> SharedOperators:
     """``SharedOperators`` on ``device`` in ``dtype`` from numpy arrays
     keyed by field name (absent optional fields stay None).  The shared 2D
-    bundle of ``prepare_shared_2d`` has the same fields (with K = 4M-4
-    trace rows) and goes through this function too."""
+    and 3D bundles of ``prepare_shared_2d`` / ``prepare_shared_3d`` have the
+    same fields (K = 4M-4 trace rows in 2D, S surface rows in 3D) and go
+    through this function too."""
     return SharedOperators(**_tensors(SharedOperators, arrays, device, dtype))
 
 
@@ -62,3 +66,20 @@ def varcoeff2d_operators_from_arrays(arrays: dict, device=None,
     fields = {k: v for k, v in fields.items() if k not in ("s2", "n_terms")}
     return VarCoeff2DOperators(s2=float(arrays["s2"]),
                                n_terms=int(arrays["n_terms"]), **fields)
+
+
+def graded2d_operators_from_arrays(arrays: dict, device=None,
+                                   dtype=torch.float32) -> Graded2DOperators:
+    """``Graded2DOperators`` from numpy arrays keyed by field name (W20,
+    W02, W10, W01, W00, B, Z, Pbc, AZ, AP)."""
+    return Graded2DOperators(**_tensors(Graded2DOperators, arrays, device,
+                                        dtype))
+
+
+def varcoeff3d_operators_from_arrays(arrays: dict, device=None,
+                                     dtype=torch.float32
+                                     ) -> VarCoeff3DOperators:
+    """``VarCoeff3DOperators`` from numpy arrays keyed by field name (Lap,
+    Gx, Gy, Gz, Dconst, B, Z, Pbc)."""
+    return VarCoeff3DOperators(**_tensors(VarCoeff3DOperators, arrays,
+                                          device, dtype))

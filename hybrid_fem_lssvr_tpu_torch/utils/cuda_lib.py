@@ -26,7 +26,8 @@ BUILD_ROOT = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # One shared library per source, so that the sources compile in parallel.
-SOURCES = ("enhance1d", "enhance2d", "enhance2d_varcoeff")
+SOURCES = ("enhance1d", "enhance2d", "enhance2d_varcoeff", "enhance2d_graded",
+           "enhance3d")
 _HEADERS = ("enhance_common.cuh",)
 
 _libs = {}
@@ -159,10 +160,15 @@ def _bind(source, lib):
         args = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, i]
         launchers = {"enhance2d_stacked_f32": args,
                      "enhance2d_shared_f32": args}
-    else:
+    elif source == "enhance2d_varcoeff":
         launchers = {"enhance2d_varcoeff_f32": [i, p, p, p, p, p, p, p, p,
                                                 p, i, i, i, i, i, f, f,
                                                 i, i, i]}
+    elif source == "enhance2d_graded":
+        launchers = {"enhance2d_graded_f32": [i] + [p] * 11 + [i] * 5
+                     + [f] * 4 + [i, i]}
+    else:
+        launchers = {"enhance3d_stacked_f32": [i] + [p] * 8 + [i] * 7}
     for name, argtypes in launchers.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

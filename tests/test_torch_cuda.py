@@ -19,12 +19,19 @@ import pytest
 import torch
 
 from hybrid_fem_lssvr_tpu_torch import (HybridSolver, HybridSolver2D,
-                                        Solver2DConfig, SolverConfig,
-                                        get_problem_2d, problems)
+                                        HybridSolver2DGraded, HybridSolver3D,
+                                        Solver2DConfig, Solver3DConfig,
+                                        SolverConfig, get_problem_2d,
+                                        get_problem_3d, problems)
 from hybrid_fem_lssvr_tpu_torch.models import hybrid as H
 from hybrid_fem_lssvr_tpu_torch.models import hybrid2d as H2
+from hybrid_fem_lssvr_tpu_torch.models import hybrid2d_graded as HG
+from hybrid_fem_lssvr_tpu_torch.models import hybrid3d as H3
+from hybrid_fem_lssvr_tpu_torch.ops import assembly3d as A3
 from hybrid_fem_lssvr_tpu_torch.ops import kernels as K
 from hybrid_fem_lssvr_tpu_torch.ops import kernels2d as K2
+from hybrid_fem_lssvr_tpu_torch.ops import kernels2d_graded as KG
+from hybrid_fem_lssvr_tpu_torch.ops import kernels3d as K3
 
 W_TOL, SLACK_TOL, BCV_TOL = 2e-6, 2e-5, 2e-6
 VC_TOL, GRADED_TOL = 3e-5, 5e-5
@@ -433,3 +440,248 @@ def test_default_device_is_the_gpu_2d(dev):
     assert s.solve().coeffs.is_cuda
     assert H2.hybrid_solve_2d(p, cfg, H2.prepare_shared_2d(p, cfg)
                               ).coeffs.is_cuda
+
+
+# ------------------------------------------------------------ 3D kernel
+# Tolerances of tests/test_pallas.py:274 (see tests/test_torch_kernels3d.py):
+# w 2e-5, bcv 1e-5, slack in magnitude.
+
+def inputs_3d(name, nx, ny, nz, dev, seed=0, M=4, C=4):
+    p = get_problem_3d(name)
+    cfg = Solver3DConfig(nx=nx, ny=ny, nz=nz, M=M, n_colloc=C,
+                         dtype="float32")
+    ops, (t_int, spts) = H3.prepare_shared_3d(p, cfg)
+    rng = np.random.default_rng(seed)
+    Z, Y, X = np.meshgrid(np.linspace(-1, 1, nz + 1),
+                          np.linspace(-1, 1, ny + 1),
+                          np.linspace(-1, 1, nx + 1), indexing="ij")
+    u = p.exact(*(torch.tensor(v) for v in (X, Y, Z))).numpy().copy()
+    u[1:-1, 1:-1, 1:-1] += 1e-3 * rng.normal(size=(nz - 1, ny - 1, nx - 1))
+    fem = torch.tensor(u, dtype=torch.float32, device=dev)
+    geom = (-1.0, 2.0 / nx, -1.0, 2.0 / ny, -1.0, 2.0 / nz)
+    return p, ops.to(dev), fem, geom, t_int, spts
+
+
+@pytest.mark.parametrize("diag", [True, False])
+@pytest.mark.parametrize("nx,ny,nz", [(1, 1, 1), (3, 5, 2), (16, 12, 8),
+                                      (33, 17, 9)])
+@pytest.mark.parametrize("M,C", K3.SHAPES)
+def test_stacked_3d_kernel_matches_plain(dev, M, C, nx, ny, nz, diag):
+    p, ops, fem, geom, t_int, spts = inputs_3d("poisson_3d_inhomogeneous",
+                                               nx, ny, nz, dev, M=M, C=C)
+    K3.reset_launch_counts()
+    for fs in (None, p.f_shifted):
+        args = (fem, ops, p.f, p.g, geom, nx, ny, nz, t_int, spts)
+        kw = dict(with_diagnostics=diag, f_shifted_fn=fs)
+        got = K3.fused_enhance_stacked_3d(*args, **kw)
+        want = K3.fused_enhance_stacked_3d_ref(*args, **kw)
+        torch.cuda.synchronize()
+        assert got[0].shape == (nx * ny * nz, M ** 3) and got[0].is_cuda
+        assert_close_2d(got, want, 2e-5)
+    assert K3.launch_counts() == {"fused_enhance_stacked_3d": 2}
+
+
+def test_3d_kernel_nan_nodal_value(dev):
+    """A NaN nodal value reaches the diagnostics of its eight hexes and of
+    no other, in the kernel as in its plain version."""
+    n = 6
+    p, ops, fem, geom, t_int, spts = inputs_3d("poisson_3d", n, n, n, dev)
+    fem[3, 2, 4] = float("nan")
+    args = (fem, ops, p.f, p.g, geom, n, n, n, t_int, spts)
+    bad = sorted(ez * n * n + ey * n + ex for ez in (2, 3) for ey in (1, 2)
+                 for ex in (3, 4))
+    got = K3.fused_enhance_stacked_3d(*args)
+    want = K3.fused_enhance_stacked_3d_ref(*args)
+    corners = A3._corners_3d(fem)
+    for out in (got, want):
+        ok = H3._kernel_solve_ok_3d(out[1], out[2], corners)
+        assert torch.nonzero(~ok).flatten().tolist() == bad
+    good = torch.ones(n ** 3, dtype=torch.bool, device=dev)
+    good[bad] = False
+    torch.testing.assert_close(got[0][good], want[0][good], rtol=0,
+                               atol=2e-5)
+
+
+def test_3d_kernel_rejects_what_it_cannot_run(dev):
+    p, ops, fem, geom, t_int, spts = inputs_3d("poisson_3d", 4, 4, 4, dev)
+    args = (p.f, p.g, geom, 4, 4, 4, t_int, spts)
+    with pytest.raises(ValueError, match="float32"):
+        K3.fused_enhance_stacked_3d(fem.double(),
+                                    ops.to(dtype=torch.float64), *args)
+    p5, ops5, fem5, geom5, t5, s5 = inputs_3d("poisson_3d", 4, 4, 4, dev,
+                                              M=5, C=5)
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        K3.fused_enhance_stacked_3d(fem5, ops5, p5.f, p5.g, geom5, 4, 4, 4,
+                                    t5, s5)
+    # 'auto' on the card goes to the kernel whatever (M, C): an uncompiled
+    # pair raises rather than running torch on the card.
+    cfg = Solver3DConfig(nx=4, ny=4, nz=4, M=5, n_colloc=5, dtype="float32",
+                         fem_dtype="float64", precond="jacobi")
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        HybridSolver3D(p5, cfg, device=dev).solve()
+    ok = HybridSolver3D(p5, dataclasses.replace(cfg, backend="torch"),
+                        device=dev).solve()
+    assert bool(ok.solve_ok.all())
+
+
+@pytest.mark.parametrize("name,kw,launches", [
+    ("poisson_3d", {}, 1),
+    ("poisson_3d", dict(formulation="dual"), 1),
+    ("poisson_3d", dict(diagnostics=False), 1),
+    ("poisson_3d_inhomogeneous", {}, 1),
+    ("helmholtz_3d", {}, 1),
+    ("advection_diffusion_3d", {}, 1),
+    ("poisson_3d_neumann", {}, 1),
+    ("variable_coeff_elliptic_3d", {}, 0),
+])
+def test_3d_solver_on_gpu_matches_cpu(dev, name, kw, launches):
+    """The whole 3D solver on the GPU (the kernel where it applies) against
+    the CPU (torch route), float32 enhancement over a float64 coarse
+    solve."""
+    cfg = Solver3DConfig(nx=16, ny=8, nz=8, dtype="float32",
+                         fem_dtype="float64", **kw)
+    K3.reset_launch_counts()
+    gpu = HybridSolver3D(get_problem_3d(name), cfg, device=dev)
+    cpu = HybridSolver3D(get_problem_3d(name), cfg, device="cpu")
+    gpu.solve()
+    cpu.solve()
+    assert K3.launch_counts()["fused_enhance_stacked_3d"] == launches
+    got, want = gpu.solution.coeffs.cpu(), cpu.solution.coeffs
+    if name == "poisson_3d_neumann":
+        # The kernel puts g on every domain face, as the Pallas kernel
+        # does; the torch route keeps the FEM trace on the natural x-hi
+        # face, as JAX's XLA route does (ROADMAP section 3).
+        got, want = got[:, :, :-1], want[:, :, :-1]
+    torch.testing.assert_close(got, want, rtol=0, atol=3e-5)
+    assert bool(gpu.solution.solve_ok.all())
+    assert abs(gpu.solution.cg_iters - cpu.solution.cg_iters) <= 1
+    pts = np.random.default_rng(0).uniform(-1, 1, (3, 500))
+    assert abs(float(gpu.errors(*pts)[0]) - float(cpu.errors(*pts)[0])) < (
+        1e-2 if name == "poisson_3d_neumann" else 1e-5)
+
+
+def test_default_device_is_the_gpu_3d(dev):
+    p = get_problem_3d("poisson_3d")
+    cfg = Solver3DConfig(nx=4, ny=4, nz=4, dtype="float32",
+                         fem_dtype="float64")
+    s = HybridSolver3D(p, cfg)
+    assert s.device.type == "cuda"
+    assert s.solve().coeffs.is_cuda
+    assert H3.hybrid_solve_3d(p, cfg, H3.prepare_shared_3d(p, cfg)
+                              ).coeffs.is_cuda
+
+
+# ------------------------------------------------------ graded 2D kernel
+# Tolerances of tests/test_pallas.py:383 (see tests/test_torch_graded2d.py):
+# w 3e-5, bcv 1e-5, slack ratio in (0.2, 5).
+
+def power_nodes(n, power=1.5):
+    """Power-law stretched nodes on [-1, 1], clustered at the centre."""
+    s = np.linspace(-1.0, 1.0, n + 1)
+    return np.sign(s) * np.abs(s) ** power
+
+
+def inputs_graded(name, nx, ny, M, C, dev, seed=0):
+    p = get_problem_2d(name)
+    cfg = Solver2DConfig(M=M, n_colloc=C, dtype="float32")
+    gops, (t_int, bpts) = HG.prepare_shared_2d_graded(p, cfg)
+    xs = torch.tensor(power_nodes(nx), dtype=torch.float32, device=dev)
+    ys = torch.tensor(power_nodes(ny), dtype=torch.float32, device=dev)
+    Y, X = torch.meshgrid(ys.double().cpu(), xs.double().cpu(),
+                          indexing="ij")
+    u = p.exact(X, Y).numpy().copy()
+    u[1:-1, 1:-1] += 1e-3 * np.random.default_rng(seed).normal(
+        size=(ny - 1, nx - 1))
+    fem = torch.tensor(u, dtype=torch.float32, device=dev)
+    return p, gops.to(dev), fem, xs, ys, t_int, bpts
+
+
+@pytest.mark.parametrize("diag", [True, False])
+@pytest.mark.parametrize("nx,ny", [(1, 1), (5, 3), (64, 48), (131, 67)])
+@pytest.mark.parametrize("M,C", K2.SHAPES)
+def test_graded_2d_kernel_matches_plain(dev, M, C, nx, ny, diag):
+    KG.reset_launch_counts()
+    for name in ("variable_coeff_elliptic_2d", "advection_diffusion_2d"):
+        p, gops, fem, xs, ys, t_int, bpts = inputs_graded(name, nx, ny, M, C,
+                                                          dev)
+        args = (fem, gops, p, xs, ys, nx, ny, t_int, bpts)
+        got = KG.fused_enhance_graded_2d(*args, with_diagnostics=diag)
+        want = KG.fused_enhance_graded_2d_ref(*args, with_diagnostics=diag)
+        torch.cuda.synchronize()
+        assert got[0].shape == (nx * ny, M * M) and got[0].is_cuda
+        assert_close_2d(got, want, 3e-5, lo=0.2, hi=5.0)
+    assert KG.launch_counts() == {"fused_enhance_graded_2d": 2}
+
+
+def test_graded_2d_kernel_nan_nodal_value(dev):
+    nx = ny = 16
+    p, gops, fem, xs, ys, t_int, bpts = inputs_graded(
+        "variable_coeff_elliptic_2d", nx, ny, 6, 6, dev)
+    fem[7, 9] = float("nan")
+    bad = [6 * 16 + 8, 6 * 16 + 9, 7 * 16 + 8, 7 * 16 + 9]
+    args = (fem, gops, p, xs, ys, nx, ny, t_int, bpts)
+    got = KG.fused_enhance_graded_2d(*args)
+    want = KG.fused_enhance_graded_2d_ref(*args)
+    corners = (fem[:-1, :-1], fem[:-1, 1:], fem[1:, :-1], fem[1:, 1:])
+    for out in (got, want):
+        ok = H2._kernel_solve_ok(out[1], out[2], corners)
+        assert torch.nonzero(~ok).flatten().tolist() == bad
+    good = torch.ones(nx * ny, dtype=torch.bool, device=dev)
+    good[bad] = False
+    torch.testing.assert_close(got[0][good], want[0][good], rtol=0,
+                               atol=3e-5)
+
+
+def test_graded_2d_kernel_rejects_what_it_cannot_run(dev):
+    p, gops, fem, xs, ys, t_int, bpts = inputs_graded(
+        "variable_coeff_elliptic_2d", 8, 8, 7, 7, dev)
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        KG.fused_enhance_graded_2d(fem, gops, p, xs, ys, 8, 8, t_int, bpts)
+    cfg = Solver2DConfig(M=7, n_colloc=7, dtype="float32",
+                         fem_dtype="float64")
+    nodes = power_nodes(8)
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        HybridSolver2DGraded(p, cfg, nodes, nodes, device=dev).solve()
+    # Without an analytic grad_a the route is torch: no launch.
+    KG.reset_launch_counts()
+    auto = HybridSolver2DGraded(dataclasses.replace(p, grad_a=None),
+                                dataclasses.replace(cfg, M=6, n_colloc=6),
+                                nodes, nodes, device=dev).solve()
+    assert KG.launch_counts()["fused_enhance_graded_2d"] == 0
+    assert bool(auto.solve_ok.all())
+    with pytest.raises(ValueError, match="float32"):
+        KG.fused_enhance_graded_2d(fem.double(), gops.to(dtype=torch.float64),
+                                   p, xs, ys, 8, 8, t_int, bpts)
+
+
+@pytest.mark.parametrize("name", ["poisson_2d", "poisson_2d_inhomogeneous",
+                                  "variable_coeff_elliptic_2d",
+                                  "advection_diffusion_2d", "helmholtz_2d"])
+def test_graded_solver_on_gpu_matches_cpu(dev, name):
+    """The whole graded solver on the GPU (kernel) against the CPU (torch
+    route), float32 enhancement over a float64 coarse solve."""
+    cfg = Solver2DConfig(M=6, n_colloc=6, dtype="float32",
+                         fem_dtype="float64")
+    xs, ys = power_nodes(32), power_nodes(24)
+    KG.reset_launch_counts()
+    gpu = HybridSolver2DGraded(get_problem_2d(name), cfg, xs, ys, device=dev)
+    cpu = HybridSolver2DGraded(get_problem_2d(name), cfg, xs, ys,
+                               device="cpu")
+    gpu.solve()
+    cpu.solve()
+    assert KG.launch_counts()["fused_enhance_graded_2d"] == 1
+    torch.testing.assert_close(gpu.solution.coeffs.cpu(),
+                               cpu.solution.coeffs, rtol=0, atol=3e-5)
+    assert bool(gpu.solution.solve_ok.all())
+    assert abs(gpu.solution.cg_iters - cpu.solution.cg_iters) <= 1
+    pts = np.random.default_rng(0).uniform(-1, 1, (2, 500))
+    assert abs(float(gpu.errors(*pts)[0]) - float(cpu.errors(*pts)[0])) < 1e-5
+
+
+def test_default_device_is_the_gpu_graded(dev):
+    p = get_problem_2d("poisson_2d")
+    nodes = power_nodes(8)
+    s = HybridSolver2DGraded(p, Solver2DConfig(dtype="float32"), nodes,
+                             nodes)
+    assert s.device.type == "cuda"
+    assert s.solve().coeffs.is_cuda

@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py [--gate-basis]
 
-``--gate-basis`` also solves each 2D, graded 2D and 3D configuration
-through the plain torch route on the card and prints its Linf: the numbers
-their gates are set from.
+``--gate-basis`` also solves each 2D, graded 2D, 3D and 2D elasticity
+configuration through the plain torch route on the card and prints its
+Linf: the numbers their gates are set from.
 
 Builds the hand-written kernels of ``hybrid_fem_lssvr_tpu_torch/csrc`` with
 nvcc (one process per source, in parallel), holds each kernel against its
@@ -15,7 +15,9 @@ hexes, M = 4, 4^3 collocation points), then drives the 1D solver through
 ``HybridSolver`` at 2^20 elements and at the reference's 25-node
 configuration, the 2D solvers through ``HybridSolver2D`` and
 ``HybridSolver2DGraded`` at 1024 x 1024 quads and the 3D solver through
-``HybridSolver3D`` at 128^3 hexes, checks the errors against gates and
+``HybridSolver3D`` at 128^3 hexes, 2D elasticity through
+``ElasticSolver2D`` at 1024 x 1024 quads (M = 6) and 3D elasticity through
+``ElasticSolver3D`` at 64^3 hexes, checks the errors against gates and
 shows through the kernels' launch counters that the solves ran on them.
 
 Each phase prints one JSON line.  The last lines are the kernel summary,
@@ -51,6 +53,8 @@ KERNELS = {
     "fused_enhance_graded_2d": (f"{CSRC}/enhance2d_graded.cu",
                                 f"{PALLAS}:1431"),
     "fused_enhance_stacked_3d": (f"{CSRC}/enhance3d.cu", f"{PALLAS}:652"),
+    "fused_enhance_elastic_2d": (f"{CSRC}/enhance2d_elastic.cu",
+                                 f"{PALLAS}:1671"),
 }
 
 # The card's published peaks (H100 SXM data sheet): device memory rate and
@@ -124,7 +128,8 @@ RHS_REL_TOL = 1e-3
 # slack to 0.30 and 0.52; the per-element factorisations amplify rounding
 # by ||D|| (0.78 sne, 1.14 qr, 1.24 in 1D); bcv to 0.6-1.25; the means
 # agree within 0.97-1.24; the graded 2D slack to 0.77 of its largest value
-# (means 1.22-1.23), the 3D slack to 1.2e-3.  In 2D and 3D, bcv is also
+# (means 1.22-1.23), the 3D slack to 1.2e-3, the elastic slack to 0.012
+# (M = 6) and 1.0e-3 (M = 4).  In 2D and 3D, bcv is also
 # computed with B scaled by
 # 1.5, where it is ~max |bc| / 2 on every quad and not rounding, and held
 # quad by quad to BCV_SKEWED_REL of its size (an H100 run gives ~3e-7).
@@ -132,7 +137,7 @@ SLACK_REL = {"separable_kernel": 1e-3, "shared_kernel": 1e-3,
              "varcoeff_kernel": 2.5, "stacked2d_kernel": 0.6,
              "shared2d_kernel": 1.0, "varcoeff2d_sne_kernel": 1.6,
              "varcoeff2d_qr_kernel": 2.3, "graded2d_kernel": 2.5,
-             "stacked3d_kernel": 0.003}
+             "stacked3d_kernel": 0.003, "elastic2d_kernel": 0.025}
 BCV_REL = 2.0
 MEAN_RATIO = (0.66, 1.5)
 BCV_SKEWED_REL = 1e-5
@@ -197,11 +202,17 @@ def device_ms(fn, kernel=None, reps=REPS):
     ``reps`` calls under torch.profiler: busy is the union of the intervals
     in which fn's kernels and copies ran on the card (host launch overhead
     excluded); kernel is the time of the CUDA kernel named ``kernel`` alone
-    (None without a name)."""
+    (None without a name).  The tracer now and then drops a record, which
+    shows as a device operation seen a number of times that is not a
+    multiple of ``reps``; such a profile is taken again, up to three times
+    (without a kernel name, the most complete of the three is used)."""
+    import collections
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    best = None
     for _attempt in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -209,13 +220,23 @@ def device_ms(fn, kernel=None, reps=REPS):
                 fn()
             torch.cuda.synchronize()
         events = prof.events()
+        seen = collections.Counter(
+            e.name for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+        complete = all(n % reps == 0 for n in seen.values())
         if kernel is None:
-            return busy_ms(events) / reps, None
+            if best is None or sum(seen.values()) > best[0]:
+                best = (sum(seen.values()), events)
+            if complete:
+                break
+            continue
         own = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
                and f"{kernel}<" in e.name]
-        if len(own) == reps:  # the tracer now and then drops a record
+        if complete and len(own) == reps:
             break
+    if kernel is None:
+        return busy_ms(best[1]) / reps, None
     check(len(own) == reps, f"profiler saw {len(own)} launches of {kernel} "
           f"in {reps} calls, three times over")
     own_ms = sum(e.time_range.elapsed_us() for e in own) / 1e3
@@ -1373,6 +1394,7 @@ def phase_routes_new(device="cuda"):
     one call, ``wall_ms`` its CUDA-event time with the host's share."""
     import torch
 
+    from hybrid_fem_lssvr_tpu_torch.models import elastic as EL
     from hybrid_fem_lssvr_tpu_torch.models import hybrid2d_graded as HG
     from hybrid_fem_lssvr_tpu_torch.models import hybrid3d as H3
 
@@ -1384,7 +1406,13 @@ def phase_routes_new(device="cuda"):
     hexes = (lambda cfg: functools.partial(
         H3.enhance_3d, s3.problem, cfg, sol3.xs, sol3.ys, sol3.zs,
         sol3.fem_values, s3._shared), s3.config, "poisson_3d", N3D)
-    for make, config, label, n in (graded, hexes):
+    # The A/B test behind backend='auto' taking the elastic kernel
+    # (models/elastic.py _resolve_backend).
+    se, sole, _ = solve_elastic("sin_elastic_2d", device, backend="cuda")
+    elastic = (lambda cfg: functools.partial(
+        EL.enhance_elastic, se.problem, cfg, sole.xs, sole.ys,
+        sole.fem_values, se._shared), se.config, "sin_elastic_2d", NE)
+    for make, config, label, n in (graded, hexes, elastic):
         recs = {"cuda": [], "torch": []}
         for backend in ("cuda", "torch", "torch", "cuda"):
             fn = make(dataclasses.replace(config, backend=backend))
@@ -1395,25 +1423,23 @@ def phase_routes_new(device="cuda"):
         emit("routes_new", run=label, n=n,
              **{f"{b}_{k}": [r[i] for r in recs[b]]
                 for b in recs for i, k in enumerate(("ms", "wall_ms"))})
-    del s, sol, s3, sol3
+    del s, sol, s3, sol3, se, sole
     torch.cuda.empty_cache()
 
 
-def phase_stages_3d(device="cuda"):
-    """Where the poisson_3d solve at 128^3 hexes spends its time: one
-    HybridSolver3D construction, solve and errors() on the host clock, then
-    once more under torch.profiler, read through the solver's spans
-    (``models/hybrid3d.py`` SPANS)."""
+def profile_stages(phase, label, solve, pts, span_names, enhance_span,
+                   **fields):
+    """Where one solve spends its time: ``solve()`` (returning the solver
+    and its solution) plus errors() on the host clock, then once more under
+    torch.profiler, read through the solver's spans ``span_names``; emits
+    the spans, device-busy time, idle share and device operations."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from hybrid_fem_lssvr_tpu_torch.models import hybrid3d as H3
-
-    pts = points_3d()
     iters = []
 
     def run():
-        s, sol, _ = solve_3d("poisson_3d", device)
+        s, sol, _ = solve()
         iters.append(sol.cg_iters)
         return [float(v) for v in s.errors(*pts)]  # synchronises
 
@@ -1428,7 +1454,7 @@ def phase_stages_3d(device="cuda"):
         profiled_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
     cpu = torch.autograd.DeviceType.CPU
-    spans = {name: dict(host_ms=0.0, device_ms=0.0) for name in H3.SPANS}
+    spans = {name: dict(host_ms=0.0, device_ms=0.0) for name in span_names}
     launches = 0
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -1438,14 +1464,324 @@ def phase_stages_3d(device="cuda"):
             spans[e.name]["device_ms"] += e.device_time_total / 1e3
     for name, rec in spans.items():
         check(rec["host_ms"] > 0, f"span {name} not seen by the profiler")
-    check(spans["enhance_3d"]["device_ms"] > 0,
-          "the profiler attributed no device time to enhance_3d")
-    busy = busy_ms(events, skip=H3.SPANS)
-    emit("stages_3d", run="poisson_3d", n=N3D, wall_ms=wall_ms,
+    check(spans[enhance_span]["device_ms"] > 0,
+          f"the profiler attributed no device time to {enhance_span}")
+    busy = busy_ms(events, skip=span_names)
+    emit(phase, run=label, **fields, wall_ms=wall_ms,
          profiled_wall_ms=profiled_ms, device_busy_ms=busy,
          device_idle_share=1.0 - busy / wall_ms, cg_iters=iters[-1],
          device_ops=launches, spans=spans)
 
+
+def phase_stages_3d(device="cuda"):
+    """Where the poisson_3d solve at 128^3 hexes spends its time
+    (``models/hybrid3d.py`` SPANS)."""
+    from hybrid_fem_lssvr_tpu_torch.models import hybrid3d as H3
+
+    profile_stages("stages_3d", "poisson_3d",
+                   functools.partial(solve_3d, "poisson_3d", device),
+                   points_3d(), H3.SPANS, "enhance_3d", n=N3D)
+
+
+# ----------------------------------------------------- elasticity phases
+
+# 2D elasticity: ElasticSolver2D at 1024 x 1024 quads, M = C = 6 (the JAX
+# default), float32 throughout (the JAX package's elasticity has one dtype,
+# coarse CG included), block V-cycle CG.  The kernel checks also run at
+# M = C = 4, bench.py's elastic_block_lse shape.  poly_elastic_2d runs at
+# 64 x 64, the largest power of two where its float32 coarse CG reaches
+# 100 eps(float32): its boundary lift puts the recursive residual's
+# rounding floor near that tolerance (48 iterations at 32^2, 393 on a CPU
+# and 601 on an H100 at 64^2, none within 1500 at 128^2 and 256^2;
+# ROADMAP section 3).  sin_elastic_2d (g = 0) needs 9-11 at every size.
+NE = 1024
+NE_POLY = 64
+ELASTIC_CG_MAXITER = 500  # sin_elastic_2d at 1024^2: a stall fails here
+# 3D elasticity: ElasticSolver3D at 64^3 hexes, M = C = 4, float32, torch
+# route (the JAX package has no kernel for it).
+NE3D = 64
+# Linf gates: 2D at 10x the torch route on the same card (--gate-basis);
+# bench.py's own gate for its 16^2 configuration (bench.py:265-282: 400
+# random points from seed 2, the JAX package measured 0.04990 on its chip);
+# 3D at 2x the O(h^2) line through the JAX package's 0.136 at 8^3
+# (RESULTS.md:512): 0.136 / 64 * 2.
+GATES_ELASTIC = {
+    "sin_elastic_2d": 1.5e-2,  # torch route on an H100: 1.524e-3
+    "poly_elastic_2d": 6.9e-3,  # at 64^2; torch route: 6.945e-4
+    "bench_16": 0.08,
+    "sin_elastic_3d": 4.3e-3,
+}
+
+
+def work_elastic_2d(M_, C_):
+    """(bytes, flops) of fused_enhance_elastic_2d at NE x NE quads, (M_,
+    C_), with diagnostics: w = [Wf | Wbc] [f; bc], D w and B w with B's
+    zero blocks skipped (what the kernel does)."""
+    n = NE
+    E = n * n
+    M2, C2, Kb = M_ * M_, C_ * C_, 4 * M_ - 4
+    nbytes = 4 * (2 * (n + 1) ** 2 + 2 * 4 * Kb * n + 2 * C2 * E
+                  + 2 * M2 * E + 2 * E)
+    flops = 2 * E * (2 * M2 * (2 * C2 + 2 * Kb) + 2 * C2 * 2 * M2
+                     + 2 * Kb * M2)
+    return nbytes, flops
+
+
+def nodal_grid_elastic(problem, device, n=None):
+    """[2, n+1, n+1]: both components' exact displacement on the nodes plus
+    noise on the interior ones, float32 (seed 0); n defaults to NE."""
+    import torch
+
+    n = n or NE
+    g = torch.Generator().manual_seed(0)
+    xs = torch.linspace(-1.0, 1.0, n + 1, dtype=torch.float64)
+    Y, X = torch.meshgrid(xs, xs, indexing="ij")
+    u = torch.stack([problem.exact1(X, Y), problem.exact2(X, Y)])
+    u[:, 1:-1, 1:-1] += 1e-3 * torch.randn(2, n - 1, n - 1, generator=g,
+                                           dtype=torch.float64)
+    return u.to(device=device, dtype=torch.float32).contiguous()
+
+
+def phase_kernels_elastic(device="cuda"):
+    """fused_enhance_elastic_2d against its plain version at 1024 x 1024
+    quads on sin_elastic_2d's nodal grids (and poly_elastic_2d's, g on every
+    edge), at M = C = 6 and 4: the checks of check_kernel_against_plain at
+    tests/test_pallas.py:423-469's coefficient tolerance (3e-5), a ragged
+    5 x 3 mesh, the ptxas summary, device times and one torch.mm of
+    [Wf | Wbc] on a prebuilt [f; bc] as the yardstick."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch.models import elastic as EL
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d as K2
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d_elastic as KE
+    from hybrid_fem_lssvr_tpu_torch.utils import cuda_lib
+
+    name, kname = "fused_enhance_elastic_2d", "elastic2d_kernel"
+    emit("ptxas", name=name, rows=[
+        r for r in cuda_lib.ptxas_summary(cuda_lib.build_log())
+        if r["kernel"] == kname])
+    h = 2.0 / NE
+    geom = (-1.0, h, -1.0, h)
+    summary = {}
+    cases = [("sin_elastic_2d", 6, True), ("sin_elastic_2d", 6, False),
+             ("poly_elastic_2d", 6, True), ("sin_elastic_2d", 4, True)]
+    for pname, M_, diag in cases:
+        problem = EL.get_elastic_problem(pname)
+        cfg = EL.ElasticConfig2D(nx=NE, ny=NE, M=M_, n_colloc=M_,
+                                 dtype="float32")
+        ops, (t_int, bpts) = EL.prepare_shared_elastic(problem, cfg)
+        ops = ops.to(device)
+        nodal = nodal_grid_elastic(problem, device)
+        fs, gs = (problem.f1, problem.f2), (problem.g1, problem.g2)
+        tail = (geom, NE, NE, t_int, bpts)
+        args = (ops, fs, gs) + tail
+        kw = dict(with_diagnostics=diag)
+        variant = f"{pname}/M={M_}{'' if diag else '/no diagnostics'}"
+        rec = check_kernel_against_plain(
+            f"{name}/{variant}", KE.fused_enhance_elastic_2d,
+            KE.fused_enhance_elastic_2d_ref, kname, nodal, args, kw,
+            (NE * NE, 2 * M_ * M_), 3e-5, (0.05, 20.0) if diag else None,
+            (dataclasses.replace(ops, B=1.5 * ops.B), fs, gs) + tail,
+            (ops, fs, (zero_g_2d, zero_g_2d)) + tail)
+        kern = functools.partial(KE.fused_enhance_elastic_2d, nodal, *args,
+                                 **kw)
+        plain = functools.partial(KE.fused_enhance_elastic_2d_ref, nodal,
+                                  *args, **kw)
+        rec["ms"], rec["kernel_ms"] = device_ms(kern, kname, reps=REPS_2D)
+        rec["plain_ms"] = device_ms(plain, reps=REPS_2D)[0]
+        rec["bound_ms"], rec["bound_by"] = bound(*work_elastic_2d(M_, M_))
+        emit("kernel", name=name, variant=variant, nx=NE, ny=NE, M=M_, C=M_,
+             wall_ms=cuda_ms(kern, reps=REPS_2D),
+             plain_wall_ms=cuda_ms(plain, reps=REPS_2D), **rec)
+        if variant == "sin_elastic_2d/M=6":
+            summary[name] = dict(rec, library_ms=None)
+            # The yardstick: one torch.mm of [Wf | Wbc] [72, 112] on the
+            # main path's z = [f; bc] [112, 2^20], sampled beforehand.
+            f, gedge, pts = KE._inputs(nodal, fs, gs, *tail)
+            z = torch.cat([f] + [K2._trace_bc(nodal[c], gedge[c], pts, NE,
+                                              NE) for c in range(2)])
+            del f
+            O = torch.cat([ops.Wf, ops.Wbc], dim=1).contiguous()
+            summary[name]["library_ms"] = device_ms(
+                functools.partial(torch.mm, O, z), reps=REPS_2D)[0]
+            emit("library", name=name, call=f"torch.mm({list(O.shape)}, "
+                 f"{list(z.shape)})", library_ms=summary[name]["library_ms"])
+            del z
+        torch.cuda.empty_cache()
+    # A ragged mesh with fewer quads than one block of threads.
+    for M_ in (6, 4):
+        problem = EL.get_elastic_problem("poly_elastic_2d")
+        cfg = EL.ElasticConfig2D(nx=5, ny=3, M=M_, n_colloc=M_,
+                                 dtype="float32")
+        ops, (t_int, bpts) = EL.prepare_shared_elastic(problem, cfg)
+        nodal = nodal_grid_elastic(problem, device, n=5)[:, :4].contiguous()
+        args = (nodal, ops.to(device), (problem.f1, problem.f2),
+                (problem.g1, problem.g2), (-1.0, 2.0 / 5, -1.0, 2.0 / 3), 5,
+                3, t_int, bpts)
+        got = KE.fused_enhance_elastic_2d(*args)
+        want = KE.fused_enhance_elastic_2d_ref(*args)
+        torch.cuda.synchronize()
+        errs = [max_err(g, w) for g, w in zip(got, want)]
+        check(errs[0] <= 3e-5 and errs[2] <= 1e-5,
+              f"{name}/ragged 5x3 M={M_}: w, slack, bcv errors {errs}")
+        emit("kernel_ragged", name=name, nx=5, ny=3, M=M_,
+             max_abs_err=errs[0], slack_max_abs_err=errs[1],
+             bcv_max_abs_err=errs[2])
+    return summary
+
+
+def solve_elastic(name, device, n=None, **kw):
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch import (ElasticConfig2D, ElasticSolver2D,
+                                            get_elastic_problem)
+
+    n = n or NE
+    cfg = ElasticConfig2D(**dict(dict(nx=n, ny=n, M=M2D, n_colloc=C2D,
+                                      dtype="float32", precond="mg",
+                                      cg_maxiter=ELASTIC_CG_MAXITER), **kw))
+    t0 = time.perf_counter()
+    s = ElasticSolver2D(get_elastic_problem(name), cfg, device=device)
+    sol = s.solve()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return s, sol, time.perf_counter() - t0
+
+
+def solve_elastic_3d(device, n=None, **kw):
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch import (ElasticConfig3D, ElasticSolver3D,
+                                            get_elastic_problem_3d)
+
+    n = n or NE3D
+    cfg = ElasticConfig3D(**dict(dict(nx=n, ny=n, nz=n, M=M3D, n_colloc=C3D,
+                                      dtype="float32", precond="mg",
+                                      cg_maxiter=ELASTIC_CG_MAXITER), **kw))
+    t0 = time.perf_counter()
+    s = ElasticSolver3D(get_elastic_problem_3d("sin_elastic_3d"), cfg,
+                        device=device)
+    sol = s.solve()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return s, sol, time.perf_counter() - t0
+
+
+def gate_elastic(label, s, sol, pts, shape):
+    """Shape, finiteness, solve_ok, convergence of the coarse CG (it left
+    its loop on the tolerance, 100 eps(float32) of ||b||) and the Linf
+    gate."""
+    import torch
+
+    check(tuple(sol.coeffs.shape) == shape,
+          f"{label}: coeffs shape {tuple(sol.coeffs.shape)}")
+    check(bool(torch.isfinite(sol.coeffs).all()), f"{label}: non-finite")
+    check(bool(sol.solve_ok.all()), f"{label}: "
+          f"{int((~sol.solve_ok).sum())} elements fell back")
+    check(sol.cg_iters < s.config.cg_maxiter, f"{label}: the float32 coarse "
+          f"CG did not reach its tolerance in {s.config.cg_maxiter} "
+          f"iterations (residual {float(sol.cg_residual)})")
+    t0 = time.perf_counter()
+    linf, l2 = (float(v) for v in s.errors(*pts))
+    errors_s = time.perf_counter() - t0
+    gate_ = GATES_ELASTIC[label]
+    check(linf < gate_, f"{label}: Linf {linf} >= gate {gate_}")
+    return dict(linf=linf, l2=l2, gate=gate_, errors_s=errors_s,
+                cg_iters=sol.cg_iters, cg_residual=float(sol.cg_residual),
+                max_bc_violation=float(sol.bc_violation.max()))
+
+
+def phase_main_path_elastic(device="cuda", gate_basis=False):
+    """2D elasticity through ElasticSolver2D at 1024 x 1024 quads with
+    backend='cuda' (sin_elastic_2d and poly_elastic_2d), bench.py's 16^2
+    gate configuration, and GPU against CPU coefficients at 64^2; returns
+    the launch counts of the 1024^2 runs.  With ``gate_basis`` both are
+    solved once more through the torch route, for their Linf."""
+    import numpy as np
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d_elastic as KE
+
+    x, y = points_2d()
+    runs = (("sin_elastic_2d", NE, {}),
+            ("poly_elastic_2d", NE_POLY, dict(cg_maxiter=4000)))
+    KE.reset_launch_counts()
+    for label, n, kw in runs:
+        before = KE.launch_counts()["fused_enhance_elastic_2d"]
+        s, sol, solve_s = solve_elastic(label, device, n=n, backend="cuda",
+                                        **kw)
+        rec = gate_elastic(label, s, sol, (x, y), (2, n, n, M2D, M2D))
+        launched = KE.launch_counts()["fused_enhance_elastic_2d"] - before
+        check(launched == 1, f"elastic {label}: {launched} kernel launches")
+        emit("main_path_elastic", run=label, nx=n, ny=n, M=M2D,
+             dtype="float32", precond="mg", solve_s=solve_s,
+             launched=launched, **rec)
+        del s, sol
+        torch.cuda.empty_cache()
+    counts = KE.launch_counts()
+    # bench.py's gate configuration (float32, M = 6, 16 x 16, 'auto'
+    # preconditioner), on the kernel.
+    rng = np.random.default_rng(2)
+    xq = torch.tensor(rng.uniform(-1, 1, 400), dtype=torch.float32)
+    yq = torch.tensor(rng.uniform(-1, 1, 400), dtype=torch.float32)
+    s, sol, solve_s = solve_elastic("sin_elastic_2d", device, n=16,
+                                    precond="auto", backend="cuda")
+    emit("main_path_elastic", run="bench_16", nx=16, ny=16, M=M2D,
+         solve_s=solve_s, **gate_elastic("bench_16", s, sol, (xq, yq),
+                                         (2, 16, 16, M2D, M2D)))
+    if gate_basis:
+        for label, n, kw in runs:
+            s, sol, solve_s = solve_elastic(label, device, n=n,
+                                            backend="torch", **kw)
+            linf, l2 = (float(v) for v in s.errors(x, y))
+            emit("gate_basis_elastic", run=label, n=n, route="torch",
+                 linf=linf, l2=l2, solve_s=solve_s, cg_iters=sol.cg_iters)
+            del s, sol
+            torch.cuda.empty_cache()
+    # GPU (kernel) against CPU (torch route) coefficients at 64 x 64 (poly:
+    # 32 x 32, where its float32 CG converges by more than rounding luck).
+    for label, n in (("sin_elastic_2d", 64), ("poly_elastic_2d", 32)):
+        gpu = solve_elastic(label, device, n=n, backend="cuda")[1]
+        cpu = solve_elastic(label, "cpu", n=n, backend="torch")[1]
+        agree = max_err(gpu.coeffs.cpu(), cpu.coeffs)
+        check(agree < 3e-5, f"elastic {label}: GPU vs CPU coeffs differ "
+              f"{agree}")
+        check(abs(gpu.cg_iters - cpu.cg_iters) <= 1, f"elastic {label}: cg "
+              f"iters {gpu.cg_iters} on the GPU, {cpu.cg_iters} on the CPU")
+        emit("main_path_elastic", run=f"{label}@{n}",
+             gpu_vs_cpu_max_abs=agree, cg_iters=gpu.cg_iters)
+    check(counts["fused_enhance_elastic_2d"] > 0,
+          "fused_enhance_elastic_2d was not launched on the elastic path")
+    emit("launch_counts_elastic", **counts)
+    return counts
+
+
+def phase_main_path_elastic_3d(device="cuda"):
+    """3D elasticity through ElasticSolver3D at 64^3 hexes (block V-cycle
+    CG in float32, then the torch enhancement), gated at 2x the O(h^2) line
+    through the JAX package's 8^3 error."""
+    import torch
+
+    pts = points_3d()
+    s, sol, solve_s = solve_elastic_3d(device)
+    rec = gate_elastic("sin_elastic_3d", s, sol, pts,
+                       (3, NE3D, NE3D, NE3D, M3D, M3D, M3D))
+    emit("main_path_elastic_3d", run="sin_elastic_3d", n=NE3D, M=M3D,
+         dtype="float32", precond="mg", route="torch", solve_s=solve_s,
+         **rec)
+    del s, sol
+    torch.cuda.empty_cache()
+
+
+def phase_stages_elastic(device="cuda"):
+    """Where the sin_elastic_2d solve at 1024 x 1024 quads spends its time
+    (``models/elastic.py`` SPANS), through the kernel."""
+    from hybrid_fem_lssvr_tpu_torch.models import elastic as EL
+
+    profile_stages("stages_elastic", "sin_elastic_2d",
+                   functools.partial(solve_elastic, "sin_elastic_2d", device,
+                                     backend="cuda"),
+                   points_2d(), EL.SPANS, "enhance_elastic", nx=NE, ny=NE)
 
 def main():
     import torch
@@ -1488,6 +1824,12 @@ def main():
     counts.update(phase_main_path_3d(gate_basis=gate_basis))
     phase_routes_new()
     phase_stages_3d()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    summary.update(phase_kernels_elastic())
+    counts.update(phase_main_path_elastic(gate_basis=gate_basis))
+    phase_main_path_elastic_3d()
+    phase_stages_elastic()
     torch.cuda.synchronize()
 
     check(sorted(summary) == sorted(KERNELS), f"kernels checked: "

@@ -7,14 +7,22 @@ Legendre basis and its boundary pinned to the FEM values, reconstructs a
 high-order solution.  This package covers the 1D solver (``HybridSolver``),
 the 2D structured-quad solver (``HybridSolver2D``), its graded-mesh variant
 (``HybridSolver2DGraded``) and the 3D structured-hex solver
-(``HybridSolver3D``); the JAX package remains the reference for everything
-else.
+(``HybridSolver3D``) and linear elasticity in 2D and 3D
+(``ElasticSolver2D``, ``ElasticSolver3D``); the JAX package remains the
+reference for everything else.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; on a
 machine without a GPU they raise instead of falling back.
 """
 
 from .models import problems
+from .models.elastic import (ElasticConfig2D, ElasticProblem2D,
+                             ElasticSolution2D, ElasticSolver2D,
+                             get_elastic_problem, hybrid_solve_elastic)
+from .models.elastic3d import (ElasticConfig3D, ElasticProblem3D,
+                               ElasticSolution3D, ElasticSolver3D,
+                               get_elastic_problem_3d,
+                               hybrid_solve_elastic_3d)
 from .models.hybrid import HybridSolver, Solution, SolverConfig, hybrid_solve
 from .models.hybrid2d import (HybridSolver2D, Problem2D, Solution2D,
                               Solver2DConfig, get_problem_2d,
@@ -25,7 +33,7 @@ from .models.hybrid3d import (HybridSolver3D, Problem3D, Solution3D,
                               hybrid_solve_3d)
 from .models.problem import Problem1D
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 __all__ = [
     "HybridSolver",
@@ -47,4 +55,16 @@ __all__ = [
     "Problem3D",
     "get_problem_3d",
     "hybrid_solve_3d",
+    "ElasticSolver2D",
+    "ElasticConfig2D",
+    "ElasticSolution2D",
+    "ElasticProblem2D",
+    "get_elastic_problem",
+    "hybrid_solve_elastic",
+    "ElasticSolver3D",
+    "ElasticConfig3D",
+    "ElasticSolution3D",
+    "ElasticProblem3D",
+    "get_elastic_problem_3d",
+    "hybrid_solve_elastic_3d",
 ]

@@ -69,4 +69,35 @@ __device__ __forceinline__ void trace_bc(const float* __restrict__ fem,
   }
 }
 
+// Stores one quad's M2 coefficients as a row of w [E][M2], 16 bytes at a
+// time where the row is float4-aligned.
+template <int M2>
+__device__ __forceinline__ void store_row(float* __restrict__ wrow,
+                                          const float* wv) {
+  if constexpr (M2 % 4 == 0) {
+#pragma unroll
+    for (int m = 0; m < M2; m += 4)
+      *reinterpret_cast<float4*>(wrow + m) =
+          make_float4(wv[m], wv[m + 1], wv[m + 2], wv[m + 3]);
+  } else {
+#pragma unroll
+    for (int m = 0; m < M2; ++m) wrow[m] = wv[m];
+  }
+}
+
+// bcv = max_k |bc_k - (B w)_k|, B [KB][M2] in shared memory.
+template <int M2, int KB>
+__device__ __forceinline__ float bc_violation(const float* Bm, const float* wv,
+                                              const float* bc) {
+  float bv = 0.f;
+#pragma unroll
+  for (int k = 0; k < KB; ++k) {
+    float r = 0.f;
+#pragma unroll
+    for (int m = 0; m < M2; ++m) r += Bm[k * M2 + m] * wv[m];
+    bv = nan_max(bv, fabsf(bc[k] - r));
+  }
+  return bv;
+}
+
 }  // namespace enh

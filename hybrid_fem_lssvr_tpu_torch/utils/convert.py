@@ -5,8 +5,11 @@ operator bundles: ``SharedOperators`` (the shared affine enhancement map,
 1D, 2D and 3D), ``VarCoeffOperators`` (the statics of the 1D per-element
 kernel), ``VarCoeff2DOperators`` and ``VarCoeff3DOperators`` (the operator
 parts of the 2D and 3D per-element solves) and ``Graded2DOperators`` (the
-reference parts of the graded 2D solve).  Their JAX counterparts are converted field by field,
-through a dict of numpy arrays made with ``np.asarray`` on each field, e.g.
+reference parts of the graded 2D solve).  The elasticity bundles (2D and
+3D) pair a ``SharedOperators`` with their collocation and trace points
+(``elastic_bundle_from_arrays``).  Their JAX counterparts are converted
+field by field, through a dict of numpy arrays made with ``np.asarray`` on
+each field, e.g.
 
     arrays = {k: np.asarray(v) for k, v in jax_ops._asdict().items()
               if v is not None}
@@ -83,3 +86,15 @@ def varcoeff3d_operators_from_arrays(arrays: dict, device=None,
     Gx, Gy, Gz, Dconst, B, Z, Pbc)."""
     return VarCoeff3DOperators(**_tensors(VarCoeff3DOperators, arrays,
                                           device, dtype))
+
+
+def elastic_bundle_from_arrays(arrays: dict, t_int, pts, device=None,
+                               dtype=torch.float32):
+    """The port's elasticity bundle (``SharedOperators``, (t_int, pts)) from
+    the JAX package's ``prepare_shared_elastic`` or
+    ``prepare_shared_elastic_3d`` output given as numpy arrays: the operator
+    fields keyed by name, the collocation points ``t_int`` [C] and the trace
+    points ``pts`` ([4M-4, 2] in 2D, [S, 3] in 3D), kept as host float64
+    arrays as the port's precompute returns them."""
+    return (shared_operators_from_arrays(arrays, device, dtype),
+            (np.asarray(t_int, np.float64), np.asarray(pts, np.float64)))

@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # One shared library per source, so that the sources compile in parallel.
 SOURCES = ("enhance1d", "enhance2d", "enhance2d_varcoeff", "enhance2d_graded",
-           "enhance3d")
+           "enhance2d_elastic", "enhance3d")
 _HEADERS = ("enhance_common.cuh",)
 
 _libs = {}
@@ -156,10 +156,12 @@ def _bind(source, lib):
             "enhance1d_varcoeff_f32": [i, p, p, p, p, p, p, p, p, p,
                                        i, i, i, f, f, f, i],
         }
-    elif source == "enhance2d":
+    elif source in ("enhance2d", "enhance2d_elastic"):
         args = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, i]
-        launchers = {"enhance2d_stacked_f32": args,
-                     "enhance2d_shared_f32": args}
+        launchers = ({"enhance2d_elastic_f32": args}
+                     if source == "enhance2d_elastic" else
+                     {"enhance2d_stacked_f32": args,
+                      "enhance2d_shared_f32": args})
     elif source == "enhance2d_varcoeff":
         launchers = {"enhance2d_varcoeff_f32": [i, p, p, p, p, p, p, p, p,
                                                 p, i, i, i, i, i, f, f,

@@ -18,11 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from hybrid_fem_lssvr_tpu_torch import (HybridSolver, HybridSolver2D,
+from hybrid_fem_lssvr_tpu_torch import (ElasticConfig2D, ElasticSolver2D,
+                                        HybridSolver, HybridSolver2D,
                                         HybridSolver2DGraded, HybridSolver3D,
                                         Solver2DConfig, Solver3DConfig,
                                         SolverConfig, get_problem_2d,
                                         get_problem_3d, problems)
+from hybrid_fem_lssvr_tpu_torch.models import elastic as EL
 from hybrid_fem_lssvr_tpu_torch.models import hybrid as H
 from hybrid_fem_lssvr_tpu_torch.models import hybrid2d as H2
 from hybrid_fem_lssvr_tpu_torch.models import hybrid2d_graded as HG
@@ -30,6 +32,7 @@ from hybrid_fem_lssvr_tpu_torch.models import hybrid3d as H3
 from hybrid_fem_lssvr_tpu_torch.ops import assembly3d as A3
 from hybrid_fem_lssvr_tpu_torch.ops import kernels as K
 from hybrid_fem_lssvr_tpu_torch.ops import kernels2d as K2
+from hybrid_fem_lssvr_tpu_torch.ops import kernels2d_elastic as KE
 from hybrid_fem_lssvr_tpu_torch.ops import kernels2d_graded as KG
 from hybrid_fem_lssvr_tpu_torch.ops import kernels3d as K3
 
@@ -685,3 +688,120 @@ def test_default_device_is_the_gpu_graded(dev):
                              nodes)
     assert s.device.type == "cuda"
     assert s.solve().coeffs.is_cuda
+
+
+# ------------------------------------------------------ elastic 2D kernel
+# Tolerances of tests/test_pallas.py:423-469 (see tests/test_torch_elastic.py):
+# w 3e-5, bcv 1e-5 here as for the scalar 2D kernels, slack in magnitude.
+
+def inputs_elastic(name, nx, ny, M, C, dev, seed=0):
+    p = EL.get_elastic_problem(name)
+    cfg = ElasticConfig2D(nx=nx, ny=ny, M=M, n_colloc=C, dtype="float32")
+    ops, (t_int, bpts) = EL.prepare_shared_elastic(p, cfg)
+    X, Y = np.meshgrid(np.linspace(-1, 1, nx + 1), np.linspace(-1, 1, ny + 1))
+    u = np.stack([e(torch.tensor(X), torch.tensor(Y)).numpy()
+                  for e in (p.exact1, p.exact2)])
+    u[:, 1:-1, 1:-1] += 1e-3 * np.random.default_rng(seed).normal(
+        size=(2, ny - 1, nx - 1))
+    fem = torch.tensor(u, dtype=torch.float32, device=dev)
+    geom = (-1.0, 2.0 / nx, -1.0, 2.0 / ny)
+    return p, ops.to(dev), fem, ((p.f1, p.f2), (p.g1, p.g2), geom, nx, ny,
+                                 t_int, bpts)
+
+
+@pytest.mark.parametrize("diag", [True, False])
+@pytest.mark.parametrize("nx,ny", [(1, 1), (5, 3), (64, 48), (131, 67)])
+@pytest.mark.parametrize("M,C", KE.SHAPES)
+def test_elastic_2d_kernel_matches_plain(dev, M, C, nx, ny, diag):
+    KE.reset_launch_counts()
+    for name in ("sin_elastic_2d", "poly_elastic_2d"):
+        p, ops, fem, tail = inputs_elastic(name, nx, ny, M, C, dev)
+        got = KE.fused_enhance_elastic_2d(fem, ops, *tail,
+                                          with_diagnostics=diag)
+        want = KE.fused_enhance_elastic_2d_ref(fem, ops, *tail,
+                                               with_diagnostics=diag)
+        torch.cuda.synchronize()
+        assert got[0].shape == (nx * ny, 2 * M * M) and got[0].is_cuda
+        assert_close_2d(got, want, 3e-5)
+    assert KE.launch_counts() == {"fused_enhance_elastic_2d": 2}
+
+
+def test_elastic_2d_kernel_diagnostics_see_b(dev):
+    """bcv with B scaled by 1.5 is ~max|bc|/2 on every quad, not rounding:
+    the kernel's must follow its plain version's, and a NaN nodal value
+    reaches the gate of its four quads and of no other."""
+    nx = ny = 16
+    p, ops, fem, tail = inputs_elastic("poly_elastic_2d", nx, ny, 6, 6, dev)
+    skewed = dataclasses.replace(ops, B=1.5 * ops.B)
+    got = KE.fused_enhance_elastic_2d(fem, skewed, *tail)[2]
+    want = KE.fused_enhance_elastic_2d_ref(fem, skewed, *tail)[2]
+    assert float(want.median()) > 1e-3
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.max()))
+    fem[1, 7, 9] = float("nan")
+    bad = [6 * 16 + 8, 6 * 16 + 9, 7 * 16 + 8, 7 * 16 + 9]
+    corners = [(f[:-1, :-1], f[:-1, 1:], f[1:, :-1], f[1:, 1:]) for f in fem]
+    for out in (KE.fused_enhance_elastic_2d(fem, ops, *tail),
+                KE.fused_enhance_elastic_2d_ref(fem, ops, *tail)):
+        ok = (H2._kernel_solve_ok(out[1], out[2], corners[0])
+              & H2._kernel_solve_ok(out[1], out[2], corners[1]))
+        assert torch.nonzero(~ok).flatten().tolist() == bad
+
+
+def test_elastic_2d_kernel_rejects_what_it_cannot_run(dev):
+    p, ops, fem, tail = inputs_elastic("sin_elastic_2d", 8, 8, 7, 7, dev)
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        KE.fused_enhance_elastic_2d(fem, ops, *tail)
+    cfg = ElasticConfig2D(nx=8, ny=8, M=7, n_colloc=7, dtype="float32",
+                          backend="cuda")
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        ElasticSolver2D(p, cfg, device=dev).solve()
+    p, ops, fem, tail = inputs_elastic("sin_elastic_2d", 8, 8, 6, 6, dev)
+    with pytest.raises(ValueError, match="float32"):
+        KE.fused_enhance_elastic_2d(fem.double(), ops.to(dtype=torch.float64),
+                                    *tail)
+    with pytest.raises(ValueError, match="nodal grids"):
+        KE.fused_enhance_elastic_2d(fem[0], ops, *tail)
+    bad_b = dataclasses.replace(ops, B=ops.B.flip(0).contiguous())
+    with pytest.raises(ValueError, match="diag"):
+        KE.fused_enhance_elastic_2d(fem, bad_b, *tail)
+
+
+@pytest.mark.parametrize("name,n", [("sin_elastic_2d", 64),
+                                    ("poly_elastic_2d", 32)])
+def test_elastic_solver_on_gpu_matches_cpu(dev, name, n):
+    """ElasticSolver2D on the GPU through the kernel against the CPU (torch
+    route), float32 throughout as in the JAX package.  poly_elastic_2d at
+    32 x 32: from 64 x 64 on its float32 coarse CG meets its tolerance only
+    by the chance of rounding (393 iterations on a CPU, 601 on an H100), so
+    the two devices' iteration counts part there."""
+    cfg = ElasticConfig2D(nx=n, ny=n, dtype="float32", backend="cuda")
+    KE.reset_launch_counts()
+    gpu = ElasticSolver2D(EL.get_elastic_problem(name), cfg, device=dev)
+    gpu.solve()
+    assert KE.launch_counts()["fused_enhance_elastic_2d"] == 1
+    cpu = ElasticSolver2D(EL.get_elastic_problem(name),
+                          dataclasses.replace(cfg, backend="torch"),
+                          device="cpu")
+    cpu.solve()
+    torch.testing.assert_close(gpu.solution.coeffs.cpu(),
+                               cpu.solution.coeffs, rtol=0, atol=3e-5)
+    assert bool(gpu.solution.solve_ok.all())
+    assert abs(gpu.solution.cg_iters - cpu.solution.cg_iters) <= 1
+    pts = np.random.default_rng(0).uniform(-1, 1, (2, 500))
+    assert abs(float(gpu.errors(*pts)[0]) - float(cpu.errors(*pts)[0])) < 1e-5
+
+
+def test_elastic_auto_route_and_default_device(dev):
+    p = EL.sin_elastic_2d()
+    cfg = ElasticConfig2D(nx=8, ny=8, dtype="float32")
+    KE.reset_launch_counts()
+    s = ElasticSolver2D(p, cfg)
+    assert s.device.type == "cuda"
+    assert s.solve().coeffs.is_cuda
+    assert KE.launch_counts()["fused_enhance_elastic_2d"] == 1
+    KE.reset_launch_counts()
+    lifted = dataclasses.replace(cfg, backend="cuda", coarse="richardson",
+                                 trace_lift=6)
+    assert bool(ElasticSolver2D(p, lifted).solve().solve_ok.all())
+    assert KE.launch_counts()["fused_enhance_elastic_2d"] == 0

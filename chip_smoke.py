@@ -57,12 +57,15 @@ KERNELS = {
                                  f"{PALLAS}:1671"),
 }
 
-# The card's published peaks (H100 SXM data sheet): device memory rate and
-# float32 rate outside the tensor cores.  bound_ms of a kernel is the larger
-# of its bytes (each input read once, each output written once) over the
-# first and its operations over the second.
+# The card's published peaks (H100 SXM data sheet): device memory rate,
+# float32 rate outside the tensor cores and dense TF32 rate of the tensor
+# cores.  bound_ms of a kernel is the larger of its bytes (each input read
+# once, each output written once) over the first and its operations over
+# the second; bound_tc_ms the larger of its bytes over the first and three
+# times its operations (3xTF32) over the third.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 
 E_MAIN = 1 << 20
 M, C = 8, 12
@@ -128,11 +131,14 @@ RHS_REL_TOL = 1e-3
 # slack to 0.30 and 0.52; the per-element factorisations amplify rounding
 # by ||D|| (0.78 sne, 1.14 qr, 1.24 in 1D); bcv to 0.6-1.25; the means
 # agree within 0.97-1.24; the graded 2D slack to 0.77 of its largest value
-# (means 1.22-1.23), the 3D slack to 1.2e-3, the elastic slack to 0.012
-# (M = 6) and 1.0e-3 (M = 4).  In 2D and 3D, bcv is also
+# (means 1.22-1.23).  The tensor-core kernels (split TF32): the 3D slack to
+# 2.0e-3, the elastic slack to 0.017 (M = 6) and 1.8e-3 (M = 4); their bcv
+# means are 0.70-0.94 of the plain version's, whose float32 product rounds
+# w more coarsely than their k-step sums.  In 2D and 3D, bcv is also
 # computed with B scaled by
 # 1.5, where it is ~max |bc| / 2 on every quad and not rounding, and held
-# quad by quad to BCV_SKEWED_REL of its size (an H100 run gives ~3e-7).
+# quad by quad to BCV_SKEWED_REL of its size (an H100 run gives ~3e-7;
+# 2e-6 to 4e-6 for the tensor-core kernels).
 SLACK_REL = {"separable_kernel": 1e-3, "shared_kernel": 1e-3,
              "varcoeff_kernel": 2.5, "stacked2d_kernel": 0.6,
              "shared2d_kernel": 1.0, "varcoeff2d_sne_kernel": 1.6,
@@ -262,12 +268,25 @@ def check_diagnostic(tag, what, got, want, rel):
             f"{what}_mean_ratio": ratio}
 
 
+def emit_ptxas(name, kname):
+    """The registers, spills and template arguments ptxas reports for every
+    compiled variant of the kernel ``kname``."""
+    from hybrid_fem_lssvr_tpu_torch.utils import cuda_lib
+
+    emit("ptxas", name=name, rows=[
+        r for r in cuda_lib.ptxas_summary(cuda_lib.build_log())
+        if r["kernel"] == kname])
+
+
 def bound(nbytes, flops):
-    """(bound_ms, bound_by): the least time the card could take."""
+    """The least time the card could take: bound_ms (and bound_by) at the
+    float32 rate of the CUDA cores, bound_tc_ms with the contractions on the
+    tensor cores in 3xTF32 (three TF32 products per product)."""
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     by_ops = flops / PEAK_FP32_FLOPS * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops \
-        else (by_ops, "operations")
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bound_tc_ms=max(by_bytes, 3 * flops / PEAK_TF32_FLOPS * 1e3))
 
 
 def work_1d(name, E, R=2):
@@ -443,16 +462,15 @@ def phase_kernels(device="cuda"):
               f"(> {RHS_REL_TOL})")
         ms, kernel_ms = device_ms(kern, kname)
         plain_ms, _ = device_ms(plain)
-        bound_ms, bound_by = bound(*work_1d(name, E_MAIN))
+        bounds = bound(*work_1d(name, E_MAIN))
         emit("kernel", name=name, variant=variant, E=E_MAIN, M=M, C=C,
              max_abs_err=max(errs), rhs_size=size, rhs_rel_err=rhs_rel,
-             ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
-             bound_ms=bound_ms, bound_by=bound_by,
+             ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, **bounds,
              wall_ms=cuda_ms(kern), plain_wall_ms=cuda_ms(plain), **diag)
         summary.setdefault(name, dict(
             max_abs_err=max(errs), rhs_rel_err=rhs_rel, ms=ms,
-            kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None))
+            kernel_ms=kernel_ms, plain_ms=plain_ms, **bounds,
+            library_ms=None))
     # One PyTorch call that does a kernel's contraction on inputs already
     # sampled (a yardstick; the port never calls it): w = [WfF^T, Wbc] [a; bc]
     # for the separable kernel, w = [Wf, Wbc] [f; bc] for the shared one.
@@ -763,8 +781,7 @@ def phase_kernels_2d(device="cuda"):
         rec["ms"], rec["kernel_ms"] = device_ms(kern, kname, reps=REPS_2D)
         rec["plain_ms"] = device_ms(plain, reps=REPS_2D)[0]
         method = kw.get("method", "sne")
-        rec["bound_ms"], rec["bound_by"] = bound(
-            *work_2d(name, method, vops.n_terms))
+        rec.update(bound(*work_2d(name, method, vops.n_terms)))
         emit("kernel", name=name, variant=variant, nx=N2D, ny=N2D, M=M2D,
              C=C2D, wall_ms=cuda_ms(kern, reps=REPS_2D),
              plain_wall_ms=cuda_ms(plain, reps=REPS_2D), **rec)
@@ -1130,7 +1147,7 @@ def phase_kernels_graded_2d(device="cuda"):
                                                 reps=REPS_2D)
         rec["plain_ms"] = device_ms(plain, reps=2)[0]
         var = problem.a_var is not None
-        rec["bound_ms"], rec["bound_by"] = bound(*work_graded_2d(var))
+        rec.update(bound(*work_graded_2d(var)))
         emit("kernel", name=name, variant=pname, nx=NG, ny=NG, M=M2D,
              C=C2D, grading=f"power {GRADED_POWER}",
              wall_ms=cuda_ms(kern, reps=REPS_2D),
@@ -1160,6 +1177,7 @@ def phase_kernels_3d(device="cuda"):
     cfg = Solver3DConfig(nx=n, ny=n, nz=n, M=M3D, n_colloc=C3D,
                          dtype="float32")
     name = "fused_enhance_stacked_3d"
+    emit_ptxas(name, "stacked3d_kernel")
     cases = [("poisson_3d", True, True), ("poisson_3d", False, True),
              ("poisson_3d_inhomogeneous", True, True),
              ("poisson_3d_inhomogeneous", False, True),
@@ -1192,7 +1210,7 @@ def phase_kernels_3d(device="cuda"):
         rec["ms"], rec["kernel_ms"] = device_ms(kern, "stacked3d_kernel",
                                                 reps=REPS_3D)
         rec["plain_ms"] = device_ms(plain, reps=REPS_3D)[0]
-        rec["bound_ms"], rec["bound_by"] = bound(*work_3d())
+        rec.update(bound(*work_3d()))
         emit("kernel", name=name, variant=variant, nx=n, ny=n, nz=n, M=M3D,
              C=C3D, wall_ms=cuda_ms(kern, reps=REPS_3D),
              plain_wall_ms=cuda_ms(plain, reps=REPS_3D), **rec)
@@ -1554,12 +1572,9 @@ def phase_kernels_elastic(device="cuda"):
     from hybrid_fem_lssvr_tpu_torch.models import elastic as EL
     from hybrid_fem_lssvr_tpu_torch.ops import kernels2d as K2
     from hybrid_fem_lssvr_tpu_torch.ops import kernels2d_elastic as KE
-    from hybrid_fem_lssvr_tpu_torch.utils import cuda_lib
 
     name, kname = "fused_enhance_elastic_2d", "elastic2d_kernel"
-    emit("ptxas", name=name, rows=[
-        r for r in cuda_lib.ptxas_summary(cuda_lib.build_log())
-        if r["kernel"] == kname])
+    emit_ptxas(name, kname)
     h = 2.0 / NE
     geom = (-1.0, h, -1.0, h)
     summary = {}
@@ -1589,7 +1604,7 @@ def phase_kernels_elastic(device="cuda"):
                                   *args, **kw)
         rec["ms"], rec["kernel_ms"] = device_ms(kern, kname, reps=REPS_2D)
         rec["plain_ms"] = device_ms(plain, reps=REPS_2D)[0]
-        rec["bound_ms"], rec["bound_by"] = bound(*work_elastic_2d(M_, M_))
+        rec.update(bound(*work_elastic_2d(M_, M_)))
         emit("kernel", name=name, variant=variant, nx=NE, ny=NE, M=M_, C=M_,
              wall_ms=cuda_ms(kern, reps=REPS_2D),
              plain_wall_ms=cuda_ms(plain, reps=REPS_2D), **rec)

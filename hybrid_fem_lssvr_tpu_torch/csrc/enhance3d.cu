@@ -11,28 +11,46 @@
 //   [w; e] = O z,   O = [[Wf, Wbc], [Pres, Qres]]   ([M^3 + C^3, C^3 + S])
 //   slack  = max |e|,   bcv = max |bc - B w|
 //
-// At M = C = 4, O is [128, 120] and B [56, 64]: 37.9 kflop a hex.
+// At M = C = 4, O is [128, 120] and B [56, 64]: 37.9 kflop a hex, 79.5
+// GFLOP at 2^21 hexes against ~1.1 GB moved.
 //
-// Bound on the H100: operations (2^21 hexes: 79.5 GFLOP against ~1.1 GB
-// moved).  The 2D design (one thread per quad, every output row an
-// accumulator) would need 128 accumulators beside the 56 trace values, and
-// keeping all of z (120 floats) in registers while walking the rows spilled
-// 1.3-1.6 KB a thread.  So one thread per hex keeps the trace bc (56 floats)
-// in registers and makes four passes over the [M^3 + C^3] output rows,
-// kRows = 32 accumulators a pass: the f part of z is streamed from device
-// memory (coalesced, the later passes hit the cache), and each step is one
-// 16-byte shared-memory broadcast of O^T[j][r..r+3] for four FMAs.  The w
-// rows are stored as they come and the residual rows reduce into the
-// slack; B w then reads the thread's w row back.  O^T, B^T and the trace
-// factors live in 77 KB of opt-in dynamic shared memory, loaded once per
-// block; the grid is sized to the resident blocks and strides over the
-// hexes, so the operators are not reloaded per 128 hexes.
+// Bound on the H100: operations.  At the float32 rate of the CUDA cores
+// that is 1.19 ms (67 TFLOP/s), which a float32 design cannot approach
+// while it also builds the trace; PR 3's one-thread-a-hex kernel ran 4.95
+// ms.  So the products run on the tensor cores in 3xTF32 (enhance_mma.cuh):
+// three TF32 products a product, 0.48 ms at the dense TF32 peak of 495
+// TFLOP/s.  Design:
+//   * One persistent block a SM (the grid is the number of resident
+//     blocks, queried once per device and variant) loads the operators
+//     once, split and fragment-ordered: O^T [120][128] (123 KB), B^T
+//     [64][56] (29 KB), the trace factors (3 KB).  It is two sub-blocks of
+//     four warps with their own barriers and streams of 64-hex tiles, so
+//     that one's loads, trace and stores overlap the other's products.
+//   * A tile's z lives k-major in shared memory, [k][hex] with a row stride
+//     of 72 floats (conflict-free fragment loads).  Its f rows come in with
+//     cp.async (a tile's row of f is contiguous) while two threads a hex
+//     build its 56 trace rows (corner gather, face override with each
+//     face's loads issued together).
+//   * A warp owns 16 hexes and all 128 outputs (64 accumulators a thread).
+//     The w rows are summed outside the tensor cores a k-step at a time
+//     (bcv is rounding of an exact zero and needs the float32 rounding);
+//     the residual rows stay in them and reduce into the slack across the
+//     four lanes of a fragment row.  w's columns are interleaved on the
+//     host so its accumulators are B w's A fragments as they stand; B w
+//     reads the trace from the z tile.  w goes out an n-tile at a time
+//     through a small staging tile, each store writing whole 32-byte
+//     sectors.
+//   * 225 KB of shared memory, 250 registers a thread, no spill.
 //
-// Built WITHOUT --use_fast_math.  The entry point launches on the caller's
-// stream, never synchronises, allocates nothing, and returns
-// cudaGetLastError().
+// Built WITHOUT --use_fast_math (NaN must reach the solve_ok gate).  The
+// entry point launches on the caller's stream, never synchronises,
+// allocates nothing, and returns the first CUDA error.
+
+#include <limits.h>
+#include <stdint.h>
 
 #include "enhance_common.cuh"
+#include "enhance_mma.cuh"
 
 // (M, C) pairs this source compiles; enhance3d_supported() answers for them
 // (SHAPES in ops/kernels3d.py is the Python-side copy).
@@ -42,158 +60,202 @@ namespace {
 
 using enh::nan_max;
 
+// A block is two sub-blocks of four warps, each with its own tile stream
+// and barrier, so that one's trace and epilogue overlap the other's
+// products.
+constexpr int kThreads = 256;
+constexpr int kSubs = 2;
+constexpr int kSubThreads = kThreads / kSubs;
+constexpr int kSubWarps = kSubThreads / 32;
+constexpr int kTile = 16 * kSubWarps;  // hexes a tile, 16 a warp
+constexpr int kLd = kTile + 8;         // z tile row stride: 8 (mod 32)
+
 template <int M, int C, bool DIAG>
 struct Layout3 {
   static constexpr int M3 = M * M * M, C3 = C * C * C;
   static constexpr int S = M3 - (M - 2) * (M - 2) * (M - 2);
-  static constexpr int Z = C3 + S;                  // inputs of O
   static constexpr int ROWS = DIAG ? M3 + C3 : M3;  // outputs of O
-  static_assert(M3 % 4 == 0 && C3 % 4 == 0 && S % 4 == 0,
-                "float4 layout needs M^3, C^3 and S divisible by 4");
-  static constexpr int OT = 0;              // O^T [Z][ROWS]
-  static constexpr int BT = OT + Z * ROWS;  // B^T [M3][S]
-  static constexpr int PTS = BT + M3 * S;   // [14][S]: N_a (8), face flags
+  static_assert(C3 % 8 == 0 && S % 8 == 0 && M3 % 8 == 0,
+                "the k and n steps need C^3, S and M^3 divisible by 8");
+  static constexpr int NT = ROWS / 8, NW = M3 / 8, NB = S / 8;
+  // statics (ops/kernels3d.py _pack): O^T [C3 + S][ROWS] (w columns
+  // interleaved) and B^T [M3][S], split and fragment-ordered (4 floats an
+  // entry pair), then the trace factors [14][S].
+  static constexpr int OF = 0;
+  static constexpr int BF = OF + 2 * (C3 + S) * ROWS;
+  static constexpr int PTS = BF + 2 * M3 * S;
   static constexpr int SIZE = PTS + 14 * S;
+  // shared memory beyond the statics, per sub-block: the f rows and the
+  // trace rows of its z tile, k-major; then a staging tile a warp.
+  static constexpr int FBUF = SIZE;
+  static constexpr int TBUF = FBUF + C3 * kLd;
+  static constexpr int SUB = C3 * kLd + S * kLd;
+  static constexpr int STAGE = SIZE + kSubs * SUB;
+  static constexpr int SMEM = STAGE + kSubs * kSubWarps * enh::tc::kStage;
+  static_assert(SIZE % 4 == 0 && BF % 4 == 0 && PTS % 4 == 0,
+                "float4 statics");
+  static_assert(sizeof(float) * SMEM <= 232448,
+                "more shared memory than a block can have");
 };
-
-constexpr int kThreads = 128;
-// Output rows a pass: kRows accumulators beside the 56 trace values.
-constexpr int kRows = 32;
-
-// Rows [R r0, R r0 + R) of O z, O^T stored [Z][ROWS]: R accumulators in
-// registers.  z is streamed: its f part from device memory (element index
-// fastest, so the loads coalesce; later passes hit the cache), its trace
-// part from the thread's column of shared memory.  Each step is R / 4
-// 16-byte shared-memory broadcasts for R FMAs.  The loops are unrolled by
-// 4 only: unrolled in full, the compiler hoists hundreds of shared-memory
-// loads and spills them.
-template <int C3, int S, int ROWS, int R, int T>
-__device__ __forceinline__ void rows_of_Oz(const float4* OT4, int r0,
-                                           const float* __restrict__ f,
-                                           size_t E, size_t e,
-                                           const float* bcs, float* acc) {
-  constexpr int RW = ROWS / 4;
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.f;
-#pragma unroll 4
-  for (int j = 0; j < C3 + S; ++j) {
-    const float z = j < C3 ? f[(size_t)j * E + e] : bcs[(j - C3) * T];
-    const float4* o = OT4 + j * RW + r0 * (R / 4);
-#pragma unroll
-    for (int r4 = 0; r4 < R / 4; ++r4) {
-      const float4 v = o[r4];
-      acc[4 * r4] += v.x * z;
-      acc[4 * r4 + 1] += v.y * z;
-      acc[4 * r4 + 2] += v.z * z;
-      acc[4 * r4 + 3] += v.w * z;
-    }
-  }
-}
 
 // gface [6][S][F]: g at the surface points of the boundary hexes of the
 // x-lo, x-hi (indexed ez ny + ey), y-lo, y-hi (ez nx + ex), z-lo, z-hi
 // (ey nx + ex) domain face.  A point on an edge or corner of the box lies on
-// two or three faces; each row holds g at the same point.
+// two or three faces; each row holds g at the same point.  Writes trace
+// rows [k0, k0 + KP) of hex e into column ``col`` of the k-major tile.
+template <int S, int KP>
+__device__ __forceinline__ void trace_rows(const float* __restrict__ fem,
+                                           const float* __restrict__ gface,
+                                           const float* pts, int e, int nx,
+                                           int ny, int nz, int F, int k0,
+                                           float* col) {
+  static_assert(S % KP == 0 && KP % 4 == 0 && S % 4 == 0,
+                "float4 rows of the trace factors");
+  const int ex = e % nx, exy = e / nx;
+  const int ey = exy % ny, ez = exy / ny;
+  const size_t sy = (size_t)nx + 1, sz = sy * ((size_t)ny + 1);
+  // Trilinear trace, corner order a = 4 cz + 2 cy + cx.
+  const float* base = fem + ez * sz + ey * sy + ex;
+  float u[8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+    u[a] = base[((a >> 2) & 1) * sz + ((a >> 1) & 1) * sy + (a & 1)];
+  float v[KP];
+#pragma unroll
+  for (int k4 = 0; k4 < KP / 4; ++k4) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const float4 n = reinterpret_cast<const float4*>(pts + a * S + k0)[k4];
+      acc.x += n.x * u[a];
+      acc.y += n.y * u[a];
+      acc.z += n.z * u[a];
+      acc.w += n.w * u[a];
+    }
+    v[4 * k4] = acc.x;
+    v[4 * k4 + 1] = acc.y;
+    v[4 * k4 + 2] = acc.z;
+    v[4 * k4 + 3] = acc.w;
+  }
+  // g on the domain faces of the hex: all of a face's values are loaded
+  // together (one round trip to memory, not one a point); the faces go in
+  // reverse order, so that where faces meet the first one wins.
+  const bool on[6] = {ex == 0, ex == nx - 1, ey == 0,
+                      ey == ny - 1, ez == 0, ez == nz - 1};
+  const int idx[6] = {ez * ny + ey, ez * ny + ey, ez * nx + ex,
+                      ez * nx + ex, ey * nx + ex, ey * nx + ex};
+#pragma unroll
+  for (int fc = 5; fc >= 0; --fc) {
+    if (on[fc]) {
+      const float* gf = gface + ((size_t)fc * S + k0) * F + idx[fc];
+      float gv[KP];
+#pragma unroll
+      for (int kk = 0; kk < KP; ++kk) gv[kk] = gf[(size_t)kk * F];
+      const float* flag = pts + (8 + fc) * S + k0;
+#pragma unroll
+      for (int kk = 0; kk < KP; ++kk)
+        if (flag[kk] > 0.5f) v[kk] = gv[kk];
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < KP; ++kk) col[(k0 + kk) * kLd] = v[kk];
+}
+
 template <int M, int C, bool DIAG>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 stacked3d_kernel(const float* __restrict__ fem, const float* __restrict__ f,
                  const float* __restrict__ gface,
                  const float* __restrict__ statics, float* __restrict__ w,
                  float* __restrict__ slack, float* __restrict__ bcv, int nx,
                  int ny, int nz, int F) {
   using L = Layout3<M, C, DIAG>;
-  constexpr int M3 = L::M3, C3 = L::C3, S = L::S, ROWS = L::ROWS;
-  static_assert(M3 % kRows == 0 && ROWS % kRows == 0,
-                "the w and residual rows must fill whole passes");
+  using namespace enh::tc;
+  constexpr int M3 = L::M3, C3 = L::C3, S = L::S;
   extern __shared__ __align__(16) float s[];
-  for (int i = threadIdx.x; i < L::SIZE; i += blockDim.x) s[i] = statics[i];
-  __syncthreads();
-  const float4* OT4 = reinterpret_cast<const float4*>(s + L::OT);
-  const float4* BT4 = reinterpret_cast<const float4*>(s + L::BT);
+  for (int i = threadIdx.x; i < L::SIZE / 4; i += kThreads)
+    reinterpret_cast<float4*>(s)[i] =
+        reinterpret_cast<const float4*>(statics)[i];
+  __syncthreads();  // the statics
+  const float4* OF = reinterpret_cast<const float4*>(s + L::OF);
+  const float4* BF = reinterpret_cast<const float4*>(s + L::BF);
   const float* pts = s + L::PTS;
-  // The thread's trace values, bcs[k * kThreads] (conflict-free).
-  float* bcs = s + L::SIZE + threadIdx.x;
-  const long long E = (long long)nx * ny * nz;
-  const size_t sx = 1, sy = (size_t)nx + 1, sz = sy * ((size_t)ny + 1);
+  const int sub = threadIdx.x / kSubThreads, stid = threadIdx.x % kSubThreads;
+  const int warp = stid / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  float* fbuf = s + L::FBUF + sub * L::SUB;
+  float* tbuf = s + L::TBUF + sub * L::SUB;
+  float* stage = s + L::STAGE + (sub * kSubWarps + warp) * kStage;
 
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < E;
-       e += (long long)gridDim.x * blockDim.x) {
-    const int ex = (int)(e % nx);
-    const int ey = (int)((e / nx) % ny);
-    const int ez = (int)(e / ((long long)nx * ny));
-    // Trilinear trace, corner order a = 4 cz + 2 cy + cx, with g on the
-    // domain faces.
-    const float* base = fem + ez * sz + ey * sy + ex * sx;
-    float u[8];
+  const int E = nx * ny * nz;  // < 2^31, checked by the entry point
+  const int tiles = (E + kTile - 1) / kTile;
+  const bool vec = E % 4 == 0 && reinterpret_cast<uintptr_t>(f) % 16 == 0;
+  // Two threads a hex build its trace rows, half of them each.
+  constexpr int kParts = kSubThreads / kTile, kPart = S / kParts;
+  static_assert(kPart * kParts == S, "trace rows split evenly");
+  const int el = stid % kTile, part = stid / kTile;
+
+  for (int tile = kSubs * blockIdx.x + sub; tile < tiles;
+       tile += kSubs * (int)gridDim.x) {
+    load_tile<kTile>(fbuf, kLd, f, C3, E, tile * kTile, vec, stid,
+                     kSubThreads);
+    cp_async_commit();
+    if (tile * kTile + el < E)
+      trace_rows<S, kPart>(fem, gface, pts, tile * kTile + el, nx, ny, nz, F,
+                           part * kPart, tbuf + el);
+    cp_async_wait<0>();
+    sub_sync(1 + sub, kSubThreads);  // the z tile is whole
+
+    const int e0 = tile * kTile + warp * 16;
+    if (e0 < E) {  // warp-uniform
+      const int rows = E - e0 < 16 ? E - e0 : 16;
+      // [w; e] = O [f; bc] for the warp's 16 hexes; the residual rows e
+      // keep their sums in the tensor cores.
+      float acc[L::NT][4];
+      zero(acc);
+      strip_mma<L::NT, 3, true, L::NW>(acc, fbuf + warp * 16, kLd, C3 / 8,
+                                       OF, lane);
+      strip_mma<L::NT, 3, true, L::NW>(acc, tbuf + warp * 16, kLd, S / 8,
+                                       OF + (C3 / 8) * L::NT * 32, lane);
+      store_rows<M3>(w + (size_t)e0 * M3, acc, stage, rows, lane);
+      if constexpr (DIAG) {
+        // rows g and g + 8 of the strip
+        float sl0 = 0.f, sl1 = 0.f;
 #pragma unroll
-    for (int a = 0; a < 8; ++a)
-      u[a] = base[((a >> 2) & 1) * sz + ((a >> 1) & 1) * sy + (a & 1) * sx];
-    const bool on[6] = {ex == 0, ex == nx - 1, ey == 0,
-                        ey == ny - 1, ez == 0, ez == nz - 1};
-    const int idx[6] = {ez * ny + ey, ez * ny + ey, ez * nx + ex,
-                        ez * nx + ex, ey * nx + ex, ey * nx + ex};
-    const bool boundary = on[0] || on[1] || on[2] || on[3] || on[4] || on[5];
-#pragma unroll 4
-    for (int k = 0; k < S; ++k) {
-      float v = 0.f;
+        for (int nt = L::NW; nt < L::NT; ++nt) {
+          sl0 = nan_max(nan_max(sl0, fabsf(acc[nt][0])), fabsf(acc[nt][1]));
+          sl1 = nan_max(nan_max(sl1, fabsf(acc[nt][2])), fabsf(acc[nt][3]));
+        }
+        // bcv = max |bc - B w|, w from the accumulators.
+        float bw[L::NB][4];
+        zero(bw);
+        strip_mma_regs<L::NB, 3, 0, L::NW>(bw, acc, BF, lane);
+        const float* bc = tbuf + warp * 16 + g;
+        float bv0 = 0.f, bv1 = 0.f;
 #pragma unroll
-      for (int a = 0; a < 8; ++a) v += pts[a * S + k] * u[a];
-      if (boundary) {
-#pragma unroll
-        for (int fc = 0; fc < 6; ++fc) {
-          if (on[fc] && pts[(8 + fc) * S + k] > 0.5f) {
-            v = gface[((size_t)fc * S + k) * F + idx[fc]];
-            break;
+        for (int nt = 0; nt < L::NB; ++nt) {
+          const int k = 8 * nt + 2 * t;
+          bv0 = nan_max(bv0, fabsf(bc[k * kLd] - bw[nt][0]));
+          bv0 = nan_max(bv0, fabsf(bc[(k + 1) * kLd] - bw[nt][1]));
+          bv1 = nan_max(bv1, fabsf(bc[k * kLd + 8] - bw[nt][2]));
+          bv1 = nan_max(bv1, fabsf(bc[(k + 1) * kLd + 8] - bw[nt][3]));
+        }
+        sl0 = row_max(sl0);
+        sl1 = row_max(sl1);
+        bv0 = row_max(bv0);
+        bv1 = row_max(bv1);
+        if (t == 0) {
+          if (g < rows) {
+            slack[e0 + g] = sl0;
+            bcv[e0 + g] = bv0;
+          }
+          if (g + 8 < rows) {
+            slack[e0 + g + 8] = sl1;
+            bcv[e0 + g + 8] = bv1;
           }
         }
       }
-      bcs[k * kThreads] = v;
     }
-
-    // [w; e] = O [f; bc], kRows output rows a pass: w rows are stored,
-    // residual rows reduce into the slack.
-    float4* wrow = reinterpret_cast<float4*>(w + (size_t)e * M3);
-    float sl = 0.f;
-#pragma unroll 1
-    for (int r0 = 0; r0 < ROWS / kRows; ++r0) {
-      float acc[kRows];
-      rows_of_Oz<C3, S, ROWS, kRows, kThreads>(OT4, r0, f, (size_t)E,
-                                               (size_t)e, bcs, acc);
-      if (r0 < M3 / kRows) {
-#pragma unroll
-        for (int r4 = 0; r4 < kRows / 4; ++r4)
-          wrow[r0 * (kRows / 4) + r4] = make_float4(
-              acc[4 * r4], acc[4 * r4 + 1], acc[4 * r4 + 2], acc[4 * r4 + 3]);
-      } else {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) sl = nan_max(sl, fabsf(acc[r]));
-      }
-    }
-    if (!DIAG) continue;
-    slack[e] = sl;
-    // bcv = max |bc - B w|, B w accumulated over the w row just stored
-    // (read back through the cache), one w value a step.
-    const float* wr = w + (size_t)e * M3;
-    float bw[S];
-#pragma unroll
-    for (int k = 0; k < S; ++k) bw[k] = 0.f;
-#pragma unroll 2
-    for (int m = 0; m < M3; ++m) {
-      const float wm = wr[m];
-#pragma unroll
-      for (int k4 = 0; k4 < S / 4; ++k4) {
-        const float4 b = BT4[m * (S / 4) + k4];
-        bw[4 * k4] += b.x * wm;
-        bw[4 * k4 + 1] += b.y * wm;
-        bw[4 * k4 + 2] += b.z * wm;
-        bw[4 * k4 + 3] += b.w * wm;
-      }
-    }
-    float bv = 0.f;
-#pragma unroll
-    for (int k = 0; k < S; ++k)
-      bv = nan_max(bv, fabsf(bcs[k * kThreads] - bw[k]));
-    bcv[e] = bv;
+    sub_sync(1 + sub, kSubThreads);  // the z tile is read
   }
 }
 
@@ -202,25 +264,17 @@ cudaError_t launch(int device, cudaStream_t st, const float* fem,
                    const float* f, const float* gface, const float* statics,
                    float* w, float* slack, float* bcv, int nx, int ny, int nz,
                    int F) {
-  using L = Layout3<M, C, DIAG>;
-  constexpr size_t smem = sizeof(float) * (L::SIZE + L::S * kThreads);
-  auto kernel = stacked3d_kernel<M, C, DIAG>;
-  // Above 48 KB dynamic shared memory is opt-in, per kernel.
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return err;
-  const long long E = (long long)nx * ny * nz;
-  const long long need = (E + kThreads - 1) / kThreads;
-  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const unsigned blocks = (unsigned)(need < resident ? need : resident);
-  kernel<<<blocks, kThreads, smem, st>>>(fem, f, gface, statics, w, slack,
-                                         bcv, nx, ny, nz, F);
+  constexpr size_t smem = sizeof(float) * Layout3<M, C, DIAG>::SMEM;
+  static int cache[enh::tc::kMaxDevices] = {};
+  cudaError_t err = cudaSuccess;
+  const int resident = enh::tc::resident_blocks(
+      stacked3d_kernel<M, C, DIAG>, cache, device, kThreads, smem, &err);
+  if (resident == 0) return err;
+  const int tiles = (nx * ny * nz + kTile - 1) / kTile;
+  const int need = (tiles + kSubs - 1) / kSubs;
+  stacked3d_kernel<M, C, DIAG>
+      <<<(unsigned)(need < resident ? need : resident), kThreads, smem,
+         st>>>(fem, f, gface, statics, w, slack, bcv, nx, ny, nz, F);
   return cudaGetLastError();
 }
 
@@ -239,6 +293,8 @@ const char* enhance3d_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// statics: O^T and B^T split and fragment-ordered, then the trace factors
+// (Layout3).
 int enhance3d_stacked_f32(int device, void* stream, const float* fem,
                           const float* f, const float* gface,
                           const float* statics, float* w, float* slack,
@@ -246,7 +302,9 @@ int enhance3d_stacked_f32(int device, void* stream, const float* fem,
                           int C, int diag) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (nx < 1 || ny < 1 || nz < 1) return (int)cudaErrorInvalidValue;
+  if (nx < 1 || ny < 1 || nz < 1 ||
+      (long long)nx * ny * nz > INT_MAX - 2 * kTile)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define X(m, c)                                                            \
   if (M == m && C == c)                                                    \

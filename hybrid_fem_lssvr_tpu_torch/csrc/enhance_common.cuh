@@ -30,6 +30,21 @@ __device__ __forceinline__ void load_statics(float* dst,
   __syncthreads();
 }
 
+// v[k] = g[k nmax] where flag[k] is set: one domain edge's Dirichlet values
+// over a quad's trace, all loaded together (one round trip to memory, not
+// one a point).
+template <int KB>
+__device__ __forceinline__ void override_edge(float (&v)[KB],
+                                              const float* __restrict__ g,
+                                              int nmax, const float* flag) {
+  float gv[KB];
+#pragma unroll
+  for (int k = 0; k < KB; ++k) gv[k] = g[(size_t)k * nmax];
+#pragma unroll
+  for (int k = 0; k < KB; ++k)
+    if (flag[k] > 0.5f) v[k] = gv[k];
+}
+
 // Boundary-trace values of quad e on an nx x ny grid, row-major quads:
 // the bilinear trace of the four corner values fem[ey..ey+1][ex..ex+1] at
 // the KB trace points, overridden on domain-boundary edges by the Dirichlet
@@ -42,31 +57,37 @@ __device__ __forceinline__ void load_statics(float* dst,
 //                  along the left (index ey), right (ey), bottom (ex) and
 //                  top (ex) domain edge.  A corner point lies on two edges;
 //                  both rows hold g at the same point.
+//
+// Value k goes to bc[k * stride].  The edges go in the reverse of the order
+// left, right, bottom, top, so that where two meet the first of that order
+// wins.
 template <int KB>
 __device__ __forceinline__ void trace_bc(const float* __restrict__ fem,
                                          const float* __restrict__ gedge,
                                          const float* pts, int e, int nx,
-                                         int ny, int nmax, float* bc) {
+                                         int ny, int nmax, float* bc,
+                                         int stride = 1) {
   const int ex = e % nx, ey = e / nx;
   const float* row0 = fem + (size_t)ey * (nx + 1) + ex;
   const float* row1 = row0 + (nx + 1);
   const float u00 = row0[0], u10 = row0[1], u01 = row1[0], u11 = row1[1];
-  const bool is_l = ex == 0, is_r = ex == nx - 1;
-  const bool is_b = ey == 0, is_t = ey == ny - 1;
+  float v[KB];
 #pragma unroll
-  for (int k = 0; k < KB; ++k) {
-    float v = pts[k] * u00 + pts[KB + k] * u10 + pts[2 * KB + k] * u01 +
-              pts[3 * KB + k] * u11;
-    if (is_l && pts[4 * KB + k] > 0.5f)
-      v = gedge[(size_t)(0 * KB + k) * nmax + ey];
-    else if (is_r && pts[5 * KB + k] > 0.5f)
-      v = gedge[(size_t)(1 * KB + k) * nmax + ey];
-    else if (is_b && pts[6 * KB + k] > 0.5f)
-      v = gedge[(size_t)(2 * KB + k) * nmax + ex];
-    else if (is_t && pts[7 * KB + k] > 0.5f)
-      v = gedge[(size_t)(3 * KB + k) * nmax + ex];
-    bc[k] = v;
-  }
+  for (int k = 0; k < KB; ++k)
+    v[k] = pts[k] * u00 + pts[KB + k] * u10 + pts[2 * KB + k] * u01 +
+           pts[3 * KB + k] * u11;
+  if (ey == ny - 1)
+    override_edge<KB>(v, gedge + (size_t)3 * KB * nmax + ex, nmax,
+                      pts + 7 * KB);
+  if (ey == 0)
+    override_edge<KB>(v, gedge + (size_t)2 * KB * nmax + ex, nmax,
+                      pts + 6 * KB);
+  if (ex == nx - 1)
+    override_edge<KB>(v, gedge + (size_t)1 * KB * nmax + ey, nmax,
+                      pts + 5 * KB);
+  if (ex == 0) override_edge<KB>(v, gedge + ey, nmax, pts + 4 * KB);
+#pragma unroll
+  for (int k = 0; k < KB; ++k) bc[k * stride] = v[k];
 }
 
 // Stores one quad's M2 coefficients as a row of w [E][M2], 16 bytes at a

@@ -326,6 +326,43 @@ def _statics(key, device, mats, pack=None):
     return flat
 
 
+def _pad8(n):
+    return -(-n // 8) * 8
+
+
+def _tf32(x):
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: the
+    13 low mantissa bits dropped, to nearest, ties away from zero."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+# The column order within an n-tile of a product whose outputs feed a second
+# product as its A fragments (csrc/enhance_mma.cuh).
+_INTERLEAVE = (0, 4, 1, 5, 2, 6, 3, 7)
+
+
+def _frag(op, interleave=False):
+    """``op`` [K, N] as the tensor-core kernels read an operator
+    (``csrc/enhance_mma.cuh``): in float32, zero-padded to K and N multiples
+    of 8, split into TF32 hi = tf32(x) and lo = tf32(x - hi), and packed in
+    fragment order [K/8, N/8, 32, 4], lane 4 g + t of k-step ks and n-tile
+    nt holding (b0.hi, b1.hi, b0.lo, b1.lo) with b0 = op[8 ks + t, 8 nt + g]
+    and b1 = op[8 ks + t + 4, 8 nt + g].  ``interleave`` takes the columns
+    of each n-tile in the order ``_INTERLEAVE``."""
+    K, N = op.shape
+    Kp, Np = _pad8(K), _pad8(N)
+    p = op.new_zeros(Kp, Np, dtype=torch.float32)
+    p[:K, :N] = op
+    if interleave:
+        p = p.reshape(Kp, Np // 8, 8)[:, :, list(_INTERLEAVE)].reshape(Kp, Np)
+    hi = _tf32(p)
+    lo = _tf32(p - hi)
+    # [ks, h, t, nt, g] -> [ks, nt, g, t, (hi, lo), h]
+    return torch.stack([x.reshape(Kp // 8, 2, 4, Np // 8, 8).permute(
+        0, 3, 4, 2, 1) for x in (hi, lo)], dim=4)
+
+
 def _outputs(E, M2, dev, with_diagnostics):
     w = torch.empty(E, M2, dtype=torch.float32, device=dev)
     if not with_diagnostics:

@@ -71,23 +71,27 @@ def _elastic_plain(fem_values, f, gedge, pts, ops, nx, ny, with_diagnostics):
 
 
 def _pack(Wf, Wbc, D, B, pts):
-    """The kernel's statics: [Wf | Wbc] transposed with its rows padded to
-    float4, the trace points, the diagonal block Bs of B and D with its rows
-    padded likewise (csrc/enhance2d_elastic.cu, ``Shape``)."""
-    R = Wf.shape[0]
+    """The kernel's statics (csrc/enhance2d_elastic.cu, ``Shape``), all but
+    the trace points split and fragment-ordered (``kernels2d._frag``):
+    [Wf | Wbc]^T with Wf's rows padded to a multiple of 8 and its output
+    columns interleaved (the kernel stages w through shared memory in that
+    order), the trace points, D^T, and for each component the rows of B^T
+    that its block reads, from the first k-step that holds one of its
+    columns of w."""
+    R, FR = Wf.shape
     Kb = B.shape[0] // 2
     M2 = R // 2
     Bs = B[:Kb, :M2]
     if not (torch.equal(B[Kb:, M2:], Bs) and not B[:Kb, M2:].any()
             and not B[Kb:, :M2].any()):
         raise ValueError("fused_enhance_elastic_2d: B is not diag(Bs, Bs)")
-    RP = (R + 3) // 4 * 4
-    O = torch.cat([Wf, Wbc], dim=1)
-    OT = torch.zeros(O.shape[1], RP, dtype=O.dtype, device=O.device)
-    OT[:, :R] = O.T
-    Dp = torch.zeros(D.shape[0], RP, dtype=D.dtype, device=D.device)
-    Dp[:, :R] = D
-    return OT, pts, Bs, Dp
+    FRP = K2._pad8(FR)
+    OT = Wf.new_zeros(FRP + Wbc.shape[1], R)
+    OT[:FR] = Wf.T
+    OT[FRP:] = Wbc.T
+    b1 = M2 // 8 * 8
+    return (K2._frag(OT, interleave=True), pts, K2._frag(D.T),
+            K2._frag(B[:Kb, :K2._pad8(M2)].T), K2._frag(B[Kb:, b1:].T))
 
 
 def _elastic_cuda(fem_values, f, gedge, pts, ops, nx, ny, with_diagnostics):

@@ -25,6 +25,8 @@ route of ``models.hybrid3d.enhance_3d`` restricts it to the faces whose
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -185,6 +187,15 @@ def _plain(fem_values, f, gface, pts, ops, nx, ny, nz, with_diagnostics):
     return w.T.contiguous(), slack, bcv
 
 
+def _pack(Wf, Wbc, Pres, Qres, B, pts, with_diagnostics=True):
+    """The kernel's statics (csrc/enhance3d.cu, ``Layout3``): O^T, its
+    output columns interleaved (w feeds B w from the accumulators), and B^T,
+    both split and fragment-ordered (``kernels2d._frag``), then the trace
+    points."""
+    O = _stacked_operator(Wf, Wbc, Pres, Qres, with_diagnostics)
+    return K2._frag(O.T, interleave=True), K2._frag(B.T), pts
+
+
 def check_shape(name, M, C):
     """Raises ValueError for an (M, C) the CUDA source does not compile."""
     if (M, C) not in SHAPES:
@@ -202,13 +213,10 @@ def _cuda(fem_values, f, gface, pts, ops, nx, ny, nz, with_diagnostics):
     lib = K2._checked_lib(name, _SOURCE, M, C)
     dev = fem_values.device
 
-    def pack(Wf, Wbc, Pres, Qres, B, pts):
-        O = _stacked_operator(Wf, Wbc, Pres, Qres, with_diagnostics)
-        return O.T, B.T, pts
-
     statics = K2._statics((name, with_diagnostics), dev,
                           (ops.Wf, ops.Wbc, ops.Pres, ops.Qres, ops.B, pts),
-                          pack)
+                          functools.partial(_pack,
+                                            with_diagnostics=with_diagnostics))
     w, slack, bcv = K2._outputs(nx * ny * nz, M3, dev, with_diagnostics)
     err = lib.enhance3d_stacked_f32(
         dev.index, _stream(fem_values), _ptr(fem_values), _ptr(f),

@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # One shared library per source, so that the sources compile in parallel.
 SOURCES = ("enhance1d", "enhance2d", "enhance2d_varcoeff", "enhance2d_graded",
            "enhance2d_elastic", "enhance3d")
-_HEADERS = ("enhance_common.cuh",)
+_HEADERS = ("enhance_common.cuh", "enhance_mma.cuh")
 
 _libs = {}
 

@@ -466,8 +466,9 @@ def inputs_3d(name, nx, ny, nz, dev, seed=0, M=4, C=4):
 
 
 @pytest.mark.parametrize("diag", [True, False])
-@pytest.mark.parametrize("nx,ny,nz", [(1, 1, 1), (3, 5, 2), (16, 12, 8),
-                                      (33, 17, 9)])
+@pytest.mark.parametrize("nx,ny,nz", [(1, 1, 1), (3, 5, 2), (5, 3, 7),
+                                      (16, 12, 8), (33, 17, 9), (40, 33, 17),
+                                      (41, 33, 17)])
 @pytest.mark.parametrize("M,C", K3.SHAPES)
 def test_stacked_3d_kernel_matches_plain(dev, M, C, nx, ny, nz, diag):
     p, ops, fem, geom, t_int, spts = inputs_3d("poisson_3d_inhomogeneous",
@@ -710,7 +711,8 @@ def inputs_elastic(name, nx, ny, M, C, dev, seed=0):
 
 
 @pytest.mark.parametrize("diag", [True, False])
-@pytest.mark.parametrize("nx,ny", [(1, 1), (5, 3), (64, 48), (131, 67)])
+@pytest.mark.parametrize("nx,ny", [(1, 1), (5, 3), (64, 48), (131, 67),
+                                   (257, 131)])
 @pytest.mark.parametrize("M,C", KE.SHAPES)
 def test_elastic_2d_kernel_matches_plain(dev, M, C, nx, ny, diag):
     KE.reset_launch_counts()

@@ -70,6 +70,7 @@ PEAK_TF32_FLOPS = 495e12
 E_MAIN = 1 << 20
 M, C = 8, 12
 REPS = 20  # timed launches per median
+PROFILE_TRIES = 5  # profiles of a call before a dropped record fails it
 DENSE_POINTS = (1 << 22) + 1  # evaluation grid of the error gates
 
 # The 2D main path: bench.py's size for the structured-quad solver.
@@ -210,8 +211,9 @@ def device_ms(fn, kernel=None, reps=REPS):
     excluded); kernel is the time of the CUDA kernel named ``kernel`` alone
     (None without a name).  The tracer now and then drops a record, which
     shows as a device operation seen a number of times that is not a
-    multiple of ``reps``; such a profile is taken again, up to three times
-    (without a kernel name, the most complete of the three is used)."""
+    multiple of ``reps``; such a profile is taken again, up to PROFILE_TRIES
+    times, and each incomplete one is reported on stderr (without a kernel
+    name, the most complete of them is used)."""
     import collections
 
     import torch
@@ -219,7 +221,7 @@ def device_ms(fn, kernel=None, reps=REPS):
 
     fn()
     best = None
-    for _attempt in range(3):
+    for attempt in range(PROFILE_TRIES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -230,6 +232,11 @@ def device_ms(fn, kernel=None, reps=REPS):
             e.name for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA)
         complete = all(n % reps == 0 for n in seen.values())
+        if not complete:
+            print(f"device_ms: profile {attempt} of {kernel or 'a call'} "
+                  f"incomplete: " + ", ".join(
+                      f"{name[:60]} x{n}" for name, n in seen.items()
+                      if n % reps), file=sys.stderr, flush=True)
         if kernel is None:
             if best is None or sum(seen.values()) > best[0]:
                 best = (sum(seen.values()), events)
@@ -244,7 +251,7 @@ def device_ms(fn, kernel=None, reps=REPS):
     if kernel is None:
         return busy_ms(best[1]) / reps, None
     check(len(own) == reps, f"profiler saw {len(own)} launches of {kernel} "
-          f"in {reps} calls, three times over")
+          f"in {reps} calls, {PROFILE_TRIES} times over")
     own_ms = sum(e.time_range.elapsed_us() for e in own) / 1e3
     return busy_ms(events) / reps, own_ms / reps
 
@@ -636,16 +643,18 @@ def phase_stages(device="cuda"):
 
 # ------------------------------------------------------------ 2D phases
 
-def nodal_grid_2d(problem, device):
+def nodal_grid_2d(problem, device, n=None):
     """Nodal values for the kernel checks: the exact solution on the
-    1025 x 1025 nodes plus noise on the interior ones, float32 (seed 0)."""
+    (n + 1)^2 nodes (n = N2D by default) plus noise on the interior ones,
+    float32 (seed 0)."""
     import torch
 
+    n = n or N2D
     g = torch.Generator().manual_seed(0)
-    xs = torch.linspace(-1.0, 1.0, N2D + 1, dtype=torch.float64)
+    xs = torch.linspace(-1.0, 1.0, n + 1, dtype=torch.float64)
     Y, X = torch.meshgrid(xs, xs, indexing="ij")
     u = problem.exact(X, Y).clone()
-    u[1:-1, 1:-1] += 1e-3 * torch.randn(N2D - 1, N2D - 1, generator=g,
+    u[1:-1, 1:-1] += 1e-3 * torch.randn(n - 1, n - 1, generator=g,
                                         dtype=torch.float64)
     return u.to(device=device, dtype=torch.float32).contiguous()
 
@@ -708,18 +717,53 @@ def check_kernel_against_plain(tag, wrapper, ref, kname, nodal, args, kw,
     return rec
 
 
+def emit_launch_shapes_2d():
+    """The ptxas rows of the two tensor-core 2D kernels, each with its
+    dynamic shared memory a block and its blocks resident on the card at
+    every compiled shape, with and without diagnostics."""
+    import ctypes
+
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d as K2
+    from hybrid_fem_lssvr_tpu_torch.utils import cuda_lib
+
+    lib = cuda_lib.load("enhance2d")
+    for kind, (name, kname) in enumerate((
+            ("fused_enhance_stacked_2d", "stacked2d_kernel"),
+            ("fused_enhance_shared_2d", "shared2d_kernel"))):
+        shapes = []
+        for M_, C_ in K2.SHAPES:
+            for diag in (1, 0):
+                smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+                err = lib.enhance2d_launch_shape(
+                    kind, torch.cuda.current_device(), M_, C_, diag,
+                    ctypes.byref(smem), ctypes.byref(blocks))
+                check(err == 0, f"{kname}: launch shape of M={M_}, C={C_}, "
+                      f"diag={diag}: CUDA error {err}")
+                shapes.append(dict(M=M_, C=C_, diag=diag,
+                                   smem_bytes=smem.value,
+                                   resident_blocks=blocks.value))
+        emit_ptxas(name, kname)
+        emit("launch_shape", name=name, kernel=kname, shapes=shapes)
+
+
 def phase_kernels_2d(device="cuda"):
     """Each 2D kernel's public wrapper against its plain version on the
     same inputs at 1024 x 1024 quads: on main-path-shaped nodal values
     (tolerances of tests/test_pallas.py: w 2e-5 stacked, 1e-5 shared, 3e-5
     per-element; bcv 1e-5; the slack in magnitude; the diagnostics also
     relative to their own size, see SLACK_REL), and on zero nodal values
-    with zero boundary data, where w is the rhs part alone (RHS_REL_TOL)."""
+    with zero boundary data, where w is the rhs part alone (RHS_REL_TOL).
+    Also the ptxas rows and launch shapes of the tensor-core kernels, and
+    the torch.mm yardsticks."""
     import torch
 
     from hybrid_fem_lssvr_tpu_torch import Solver2DConfig, get_problem_2d
     from hybrid_fem_lssvr_tpu_torch.models import hybrid2d as H2
     from hybrid_fem_lssvr_tpu_torch.ops import kernels2d as K2
+
+    emit_launch_shapes_2d()
 
     cfg = Solver2DConfig(nx=N2D, ny=N2D, M=M2D, n_colloc=C2D,
                          dtype="float32")
@@ -789,20 +833,27 @@ def phase_kernels_2d(device="cuda"):
             summary[name] = dict(rec, library_ms=None)
         elif variant == "qr":
             summary[name]["qr"] = rec
-    # The yardstick: one torch.mm of the stacked operator on a prebuilt
-    # z = [f; bc] (no single PyTorch call does the per-quad factorisation).
+    # The yardsticks: one torch.mm of the stacked operator on a prebuilt
+    # z = [f; bc] (no single PyTorch call does the per-quad factorisation);
+    # for the shared kernel, [Wf | Wbc] z (w alone, library_ms) and
+    # [W; D W; B W] z with W = [Wf | Wbc] (w, D w and B w in one product,
+    # library_all_ms).
     f, gedge, pts, _ = K2._shared_inputs(fem_inh, inh.f, inh.g, *tail,
                                          inh.f_shifted)
     z = torch.cat([f, K2._trace_bc(fem_inh, gedge, pts, N2D, N2D)])
     del f
     top = torch.cat([ops.Wf, ops.Wbc], dim=1)
     full = torch.cat([top, torch.cat([ops.Pres, ops.Qres], dim=1)])
-    for name, O in (("fused_enhance_stacked_2d", full.contiguous()),
-                    ("fused_enhance_shared_2d", top.contiguous())):
-        summary[name]["library_ms"] = device_ms(
+    every = torch.cat([top, ops.D @ top, ops.B @ top])
+    for name, O, key in (
+            ("fused_enhance_stacked_2d", full.contiguous(), "library_ms"),
+            ("fused_enhance_shared_2d", top.contiguous(), "library_ms"),
+            ("fused_enhance_shared_2d", every.contiguous(),
+             "library_all_ms")):
+        summary[name][key] = device_ms(
             functools.partial(torch.mm, O, z), reps=REPS_2D)[0]
         emit("library", name=name, call=f"torch.mm({list(O.shape)}, "
-             f"{list(z.shape)})", library_ms=summary[name]["library_ms"])
+             f"{list(z.shape)})", **{key: summary[name][key]})
     return summary
 
 
@@ -1169,6 +1220,7 @@ def phase_kernels_3d(device="cuda"):
 
     from hybrid_fem_lssvr_tpu_torch import Solver3DConfig, get_problem_3d
     from hybrid_fem_lssvr_tpu_torch.models import hybrid3d as H3
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d as K2
     from hybrid_fem_lssvr_tpu_torch.ops import kernels3d as K3
 
     n = N3D
@@ -1225,7 +1277,7 @@ def phase_kernels_3d(device="cuda"):
                                n, t_int, spts, problem.f_shifted)
     z = torch.cat([f, K3._trace_bc(nodal, gface, pts, n, n, n)])
     del f
-    O = K3._stacked_operator(ops.Wf, ops.Wbc, ops.Pres, ops.Qres,
+    O = K2._stacked_operator(ops.Wf, ops.Wbc, ops.Pres, ops.Qres,
                              True).contiguous()
     summary[name]["library_ms"] = device_ms(
         functools.partial(torch.mm, O, z), reps=REPS_3D)[0]

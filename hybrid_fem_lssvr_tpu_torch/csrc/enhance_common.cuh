@@ -33,15 +33,15 @@ __device__ __forceinline__ void load_statics(float* dst,
 // v[k] = g[k nmax] where flag[k] is set: one domain edge's Dirichlet values
 // over a quad's trace, all loaded together (one round trip to memory, not
 // one a point).
-template <int KB>
-__device__ __forceinline__ void override_edge(float (&v)[KB],
+template <int KP>
+__device__ __forceinline__ void override_edge(float (&v)[KP],
                                               const float* __restrict__ g,
                                               int nmax, const float* flag) {
-  float gv[KB];
+  float gv[KP];
 #pragma unroll
-  for (int k = 0; k < KB; ++k) gv[k] = g[(size_t)k * nmax];
+  for (int k = 0; k < KP; ++k) gv[k] = g[(size_t)k * nmax];
 #pragma unroll
-  for (int k = 0; k < KB; ++k)
+  for (int k = 0; k < KP; ++k)
     if (flag[k] > 0.5f) v[k] = gv[k];
 }
 
@@ -58,67 +58,35 @@ __device__ __forceinline__ void override_edge(float (&v)[KB],
 //                  top (ex) domain edge.  A corner point lies on two edges;
 //                  both rows hold g at the same point.
 //
-// Value k goes to bc[k * stride].  The edges go in the reverse of the order
-// left, right, bottom, top, so that where two meet the first of that order
-// wins.
-template <int KB>
+// Values k0 .. k0 + KP - 1 (all KB by default); value k goes to
+// bc[(k - k0) * stride].  The edges go in the reverse of the order left,
+// right, bottom, top, so that where two meet the first of that order wins.
+template <int KB, int KP = KB>
 __device__ __forceinline__ void trace_bc(const float* __restrict__ fem,
                                          const float* __restrict__ gedge,
                                          const float* pts, int e, int nx,
                                          int ny, int nmax, float* bc,
-                                         int stride = 1) {
+                                         int stride = 1, int k0 = 0) {
   const int ex = e % nx, ey = e / nx;
   const float* row0 = fem + (size_t)ey * (nx + 1) + ex;
   const float* row1 = row0 + (nx + 1);
   const float u00 = row0[0], u10 = row0[1], u01 = row1[0], u11 = row1[1];
-  float v[KB];
+  const float* p = pts + k0;
+  float v[KP];
 #pragma unroll
-  for (int k = 0; k < KB; ++k)
-    v[k] = pts[k] * u00 + pts[KB + k] * u10 + pts[2 * KB + k] * u01 +
-           pts[3 * KB + k] * u11;
+  for (int k = 0; k < KP; ++k)
+    v[k] = p[k] * u00 + p[KB + k] * u10 + p[2 * KB + k] * u01 +
+           p[3 * KB + k] * u11;
+  const float* g = gedge + (size_t)k0 * nmax;
   if (ey == ny - 1)
-    override_edge<KB>(v, gedge + (size_t)3 * KB * nmax + ex, nmax,
-                      pts + 7 * KB);
+    override_edge<KP>(v, g + (size_t)3 * KB * nmax + ex, nmax, p + 7 * KB);
   if (ey == 0)
-    override_edge<KB>(v, gedge + (size_t)2 * KB * nmax + ex, nmax,
-                      pts + 6 * KB);
+    override_edge<KP>(v, g + (size_t)2 * KB * nmax + ex, nmax, p + 6 * KB);
   if (ex == nx - 1)
-    override_edge<KB>(v, gedge + (size_t)1 * KB * nmax + ey, nmax,
-                      pts + 5 * KB);
-  if (ex == 0) override_edge<KB>(v, gedge + ey, nmax, pts + 4 * KB);
+    override_edge<KP>(v, g + (size_t)1 * KB * nmax + ey, nmax, p + 5 * KB);
+  if (ex == 0) override_edge<KP>(v, g + ey, nmax, p + 4 * KB);
 #pragma unroll
-  for (int k = 0; k < KB; ++k) bc[k * stride] = v[k];
-}
-
-// Stores one quad's M2 coefficients as a row of w [E][M2], 16 bytes at a
-// time where the row is float4-aligned.
-template <int M2>
-__device__ __forceinline__ void store_row(float* __restrict__ wrow,
-                                          const float* wv) {
-  if constexpr (M2 % 4 == 0) {
-#pragma unroll
-    for (int m = 0; m < M2; m += 4)
-      *reinterpret_cast<float4*>(wrow + m) =
-          make_float4(wv[m], wv[m + 1], wv[m + 2], wv[m + 3]);
-  } else {
-#pragma unroll
-    for (int m = 0; m < M2; ++m) wrow[m] = wv[m];
-  }
-}
-
-// bcv = max_k |bc_k - (B w)_k|, B [KB][M2] in shared memory.
-template <int M2, int KB>
-__device__ __forceinline__ float bc_violation(const float* Bm, const float* wv,
-                                              const float* bc) {
-  float bv = 0.f;
-#pragma unroll
-  for (int k = 0; k < KB; ++k) {
-    float r = 0.f;
-#pragma unroll
-    for (int m = 0; m < M2; ++m) r += Bm[k * M2 + m] * wv[m];
-    bv = nan_max(bv, fabsf(bc[k] - r));
-  }
-  return bv;
+  for (int k = 0; k < KP; ++k) bc[k * stride] = v[k];
 }
 
 }  // namespace enh

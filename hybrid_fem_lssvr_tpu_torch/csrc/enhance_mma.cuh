@@ -1,6 +1,6 @@
 // Element tiles through the tensor cores in split TF32 (sm_80 and later;
 // built for sm_90a), shared by the redesigned enhancement kernels
-// (enhance3d.cu, enhance2d_elastic.cu).
+// (enhance3d.cu, enhance2d_elastic.cu, enhance2d.cu).
 //
 // A warp owns a strip of 16 elements and computes every output of a
 // per-element product out[e][n] = sum_k a[e][k] op[k][n] as the M side of
@@ -8,9 +8,14 @@
 // B.  TF32 keeps 10 mantissa bits, so each float32 value x is split into
 // hi = tf32(x) and lo = tf32(x - hi) (x - hi is exact; tf32 rounds to
 // nearest, ties away) and a product is summed from lo*hi + hi*lo + hi*hi
-// (TERMS = 3, "3xTF32") or also lo*lo (TERMS = 4).  Products of two TF32
-// values are exact in float32.  The tensor cores round their float32 sums
-// toward zero, which biases a long sum kept in them, so each k-step's terms
+// (TERMS = 3, "3xTF32") or also lo*lo (TERMS = 4); TERMS = 1 is plain
+// TF32, hi*hi alone, for a product whose error does not matter.  hi + lo
+// holds x to 2^-22 of its size, four times float32's rounding; where that
+// is too coarse, the operator is split once more, lo2 = tf32(x - hi - lo)
+// (hi + lo + lo2 = x exactly), and TERMS = 5 adds lo*lo and hi*lo2.
+// Products of two TF32 values are exact in float32.  The tensor cores
+// round their float32 sums toward zero, which biases a long sum kept in
+// them, so each k-step's terms
 // are summed by the tensor cores from zero and added to the accumulators on
 // the CUDA cores, which round to nearest: the diagnostics (bcv is float32
 // rounding of an exact zero) then stay at the size of a float32 product's.
@@ -20,7 +25,9 @@
 // float4 frag[ks][nt][lane] = (b0.hi, b1.hi, b0.lo, b1.lo) with
 // b0 = op[8 ks + t][8 nt + g], b1 = op[8 ks + t + 4][8 nt + g], g = lane / 4,
 // t = lane % 4: one conflict-free 16-byte shared-memory load gives a lane
-// both halves of its B fragment.  The element side is split in registers.
+// both halves of its B fragment; lo2, where TERMS = 5 reads it, is a second
+// array float2 frag3[ks][nt][lane] = (b0.lo2, b1.lo2).  The element side is
+// split in registers.
 //
 // Fragment layouts of m16n8k8 (PTX ISA, "Matrix fragments for mma.m16n8k8",
 // .tf32):
@@ -81,21 +88,33 @@ __device__ __forceinline__ void zero(float (&acc)[N][4]) {
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 }
 
+// d = a b where ``first`` (d's first term), else d += a b.
+__device__ __forceinline__ void mma_term(float (&d)[4], bool first,
+                                         const uint32_t (&a)[4], float b0,
+                                         float b1) {
+  if (first)
+    mma0(d, a, __float_as_uint(b0), __float_as_uint(b1));
+  else
+    mma(d, a, __float_as_uint(b0), __float_as_uint(b1));
+}
+
 // One k-step for the warp's strip: acc[nt] += a op[k-step][nt], nt < NT,
 // with a = (a0, a1, a2, a3) the lane's A fragment in float32 and ``b``
-// the operator's fragments of this k-step (frag + ks NT 32 + lane).  The
-// n-tiles go in groups of at most 4 (registers: a group holds 8 a tile);
-// each term runs over a whole group before the next, so that consecutive
-// mma.sync of a warp do not wait on one another.  N-tiles from NOUT on
-// keep their sums in the tensor cores (no output of theirs is a float32
-// rounding of zero that a diagnostic reads).
+// the operator's fragments of this k-step (frag + ks NT 32 + lane; ``b3``
+// the same of frag3 where TERMS = 5).  The n-tiles go in groups of at most
+// 4 (registers: a group holds 8 a tile); each term runs over a whole group
+// before the next, so that consecutive mma.sync of a warp do not wait on
+// one another.  N-tiles from NOUT on keep their sums in the tensor cores
+// (no output of theirs is a float32 rounding of zero that a diagnostic
+// reads).
 template <int NT, int TERMS, int NOUT = NT>
 __device__ __forceinline__ void kstep(float (&acc)[NT][4], const float (&a)[4],
-                                      const float4* b) {
-  static_assert(TERMS == 3 || TERMS == 4, "3xTF32 or 4xTF32");
+                                      const float4* b,
+                                      const float2* b3 = nullptr) {
+  static_assert(TERMS == 1 || (TERMS >= 3 && TERMS <= 5),
+                "1, 3, 4 or 5 TF32 products");
   constexpr int kGroups = (NT + 3) / 4;
   constexpr int G = (NT + kGroups - 1) / kGroups;
-  static_assert(NOUT == NT || NOUT % G == 0, "a group on both sides of NOUT");
   uint32_t ah[4], al[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -104,86 +123,103 @@ __device__ __forceinline__ void kstep(float (&acc)[NT][4], const float (&a)[4],
   }
 #pragma unroll
   for (int n0 = 0; n0 < NT; n0 += G) {
-    const bool out = n0 < NOUT;  // compile-time after unrolling
     float4 v[G];
+    float2 v3[G];
     float d[G][4];
-#pragma unroll
-    for (int j = 0; j < G; ++j)
-      if (n0 + j < NT) v[j] = b[(n0 + j) * 32];
-    // Small terms first, the hi * hi term last.
 #pragma unroll
     for (int j = 0; j < G; ++j) {
       if (n0 + j < NT) {
+        v[j] = b[(n0 + j) * 32];
+        if constexpr (TERMS == 5) v3[j] = b3[(n0 + j) * 32];
+      }
+    }
+    // Small terms first, the hi * hi term last: hi * lo2, lo * lo, lo * hi,
+    // hi * lo, hi * hi, those of them that TERMS takes.  An n-tile below
+    // NOUT (``out``, compile-time after unrolling) sums the k-step from
+    // zero in d and adds it to acc on the CUDA cores.
+    constexpr bool kLoHi = TERMS >= 3;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      if (n0 + j < NT) {
+        const bool out = n0 + j < NOUT;
         float(&dj)[4] = out ? d[j] : acc[n0 + j];
-        const float4& vj = v[j];
-        if (out) {
-          if constexpr (TERMS == 4)
-            mma0(dj, al, __float_as_uint(vj.z), __float_as_uint(vj.w));
-          else
-            mma0(dj, al, __float_as_uint(vj.x), __float_as_uint(vj.y));
-        } else {
-          if constexpr (TERMS == 4)
-            mma(dj, al, __float_as_uint(vj.z), __float_as_uint(vj.w));
-          else
-            mma(dj, al, __float_as_uint(vj.x), __float_as_uint(vj.y));
+        if constexpr (TERMS == 5) mma_term(dj, out, ah, v3[j].x, v3[j].y);
+      }
+    }
+    if constexpr (TERMS >= 4) {
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (n0 + j < NT) {
+          const bool out = n0 + j < NOUT;
+          mma_term(out ? d[j] : acc[n0 + j], out && TERMS == 4, al, v[j].z,
+                   v[j].w);
         }
       }
     }
-    if constexpr (TERMS == 4) {
+    if constexpr (kLoHi) {
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (n0 + j < NT) {
+          const bool out = n0 + j < NOUT;
+          mma_term(out ? d[j] : acc[n0 + j], out && TERMS == 3, al, v[j].x,
+                   v[j].y);
+        }
+      }
 #pragma unroll
       for (int j = 0; j < G; ++j)
         if (n0 + j < NT)
-          mma(out ? d[j] : acc[n0 + j], al, __float_as_uint(v[j].x),
-              __float_as_uint(v[j].y));
+          mma(n0 + j < NOUT ? d[j] : acc[n0 + j], ah,
+              __float_as_uint(v[j].z), __float_as_uint(v[j].w));
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      if (n0 + j < NT) {
+        const bool out = n0 + j < NOUT;
+        mma_term(out ? d[j] : acc[n0 + j], out && TERMS == 1, ah, v[j].x,
+                 v[j].y);
+      }
     }
 #pragma unroll
     for (int j = 0; j < G; ++j)
-      if (n0 + j < NT)
-        mma(out ? d[j] : acc[n0 + j], ah, __float_as_uint(v[j].z),
-            __float_as_uint(v[j].w));
+      if (n0 + j < NOUT)
 #pragma unroll
-    for (int j = 0; j < G; ++j)
-      if (n0 + j < NT)
-        mma(out ? d[j] : acc[n0 + j], ah, __float_as_uint(v[j].x),
-            __float_as_uint(v[j].y));
-    if (out) {
-#pragma unroll
-      for (int j = 0; j < G; ++j)
-        if (n0 + j < NT)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[n0 + j][i] += d[j][i];
-    }
+        for (int i = 0; i < 4; ++i) acc[n0 + j][i] += d[j][i];
   }
 }
 
 // acc += a op for the strip, a read from a shared-memory tile, k_steps
 // k-steps of the fragment-ordered operator ``frag``.  The tile is k-major
-// (KMAJOR), a[e][k] at p[k * ld + e], ld = 8 (mod 32), or element-major,
+// (KMAJOR), a[e][k] at p[k * ld + e], ld = 8 or 24 (mod 32), or element-major,
 // a[e][k] at p[e * ld + k], ld = 4 (mod 8); p at the strip's first element
 // and first k; either way the fragment loads are conflict-free.
+// ``frag3`` is the operator's lo2 array where TERMS = 5.
 template <int NT, int TERMS, bool KMAJOR, int NOUT = NT>
 __device__ __forceinline__ void strip_mma(float (&acc)[NT][4], const float* p,
                                           int ld, int k_steps,
-                                          const float4* frag, int lane) {
+                                          const float4* frag, int lane,
+                                          const float2* frag3 = nullptr) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll 1
   for (int ks = 0; ks < k_steps; ++ks) {
+    const size_t off = (size_t)ks * NT * 32 + lane;
+    const float2* b3 = TERMS == 5 ? frag3 + off : nullptr;
     if constexpr (KMAJOR) {
       const float* q = p + (8 * ks + t) * ld + g;
       const float a[4] = {q[0], q[8], q[4 * ld], q[4 * ld + 8]};
-      kstep<NT, TERMS, NOUT>(acc, a, frag + (size_t)ks * NT * 32 + lane);
+      kstep<NT, TERMS, NOUT>(acc, a, frag + off, b3);
     } else {
       const float* q = p + g * ld + 8 * ks + t;
       const float a[4] = {q[0], q[8 * ld], q[4], q[8 * ld + 4]};
-      kstep<NT, TERMS, NOUT>(acc, a, frag + (size_t)ks * NT * 32 + lane);
+      kstep<NT, TERMS, NOUT>(acc, a, frag + off, b3);
     }
   }
 }
 
 // acc += a op for the strip, with a's k-steps [K0, K0 + KS) held in the
 // accumulators ``w`` of an earlier product whose output columns were
-// interleaved (see above): w[ks] is the A fragment of k-step ks.
-template <int NT, int TERMS, int K0, int KS, int NW>
+// interleaved (see above): w[ks] is the A fragment of k-step ks.  NOUT as
+// in kstep.
+template <int NT, int TERMS, int K0, int KS, int NOUT = NT, int NW>
 __device__ __forceinline__ void strip_mma_regs(float (&acc)[NT][4],
                                                const float (&w)[NW][4],
                                                const float4* frag, int lane) {
@@ -192,7 +228,7 @@ __device__ __forceinline__ void strip_mma_regs(float (&acc)[NT][4],
   for (int ks = 0; ks < KS; ++ks) {
     const float a[4] = {w[K0 + ks][0], w[K0 + ks][2], w[K0 + ks][1],
                         w[K0 + ks][3]};
-    kstep<NT, TERMS>(acc, a, frag + (size_t)ks * NT * 32 + lane);
+    kstep<NT, TERMS, NOUT>(acc, a, frag + (size_t)ks * NT * 32 + lane);
     // A compiler barrier: without it the operator loads of every k-step
     // of the unrolled loop are hoisted to its top, at a cost in registers.
     asm volatile("" ::: "memory");

@@ -180,12 +180,19 @@ def _shared_inputs(fem_values, f_fn, g_fn, geom, nx, ny, t_int, bpts,
 # Plain versions of the kernels (quads on the last axis, as on the TPU)
 # --------------------------------------------------------------------------
 
+def _stacked_operator(Wf, Wbc, Pres, Qres, with_diagnostics):
+    """O = [[Wf, Wbc], [Pres, Qres]], or its first block row alone."""
+    O = torch.cat([Wf, Wbc], dim=1)
+    if with_diagnostics:
+        O = torch.cat([O, torch.cat([Pres, Qres], dim=1)], dim=0)
+    return O
+
+
 def _stacked_plain(fem_values, f, gedge, pts, ops, nx, ny, with_diagnostics):
     M2 = ops.Wf.shape[0]
     bc = _trace_bc(fem_values, gedge, pts, nx, ny)
-    O = torch.cat([ops.Wf, ops.Wbc], dim=1)
-    if with_diagnostics:
-        O = torch.cat([O, torch.cat([ops.Pres, ops.Qres], dim=1)], dim=0)
+    O = _stacked_operator(ops.Wf, ops.Wbc, ops.Pres, ops.Qres,
+                          with_diagnostics)
     out = O @ torch.cat([f, bc], dim=0)
     w = out[:M2]
     if not with_diagnostics:
@@ -342,14 +349,11 @@ def _tf32(x):
 _INTERLEAVE = (0, 4, 1, 5, 2, 6, 3, 7)
 
 
-def _frag(op, interleave=False):
-    """``op`` [K, N] as the tensor-core kernels read an operator
-    (``csrc/enhance_mma.cuh``): in float32, zero-padded to K and N multiples
-    of 8, split into TF32 hi = tf32(x) and lo = tf32(x - hi), and packed in
-    fragment order [K/8, N/8, 32, 4], lane 4 g + t of k-step ks and n-tile
-    nt holding (b0.hi, b1.hi, b0.lo, b1.lo) with b0 = op[8 ks + t, 8 nt + g]
-    and b1 = op[8 ks + t + 4, 8 nt + g].  ``interleave`` takes the columns
-    of each n-tile in the order ``_INTERLEAVE``."""
+def _split(op, interleave):
+    """(hi, lo, lo2) of ``op`` [K, N] in float32, zero-padded to K and N
+    multiples of 8, with the columns of each n-tile in the order
+    ``_INTERLEAVE`` where ``interleave``: hi = tf32(x), lo = tf32(x - hi),
+    lo2 = tf32(x - hi - lo), so hi + lo + lo2 = x exactly."""
     K, N = op.shape
     Kp, Np = _pad8(K), _pad8(N)
     p = op.new_zeros(Kp, Np, dtype=torch.float32)
@@ -358,9 +362,32 @@ def _frag(op, interleave=False):
         p = p.reshape(Kp, Np // 8, 8)[:, :, list(_INTERLEAVE)].reshape(Kp, Np)
     hi = _tf32(p)
     lo = _tf32(p - hi)
-    # [ks, h, t, nt, g] -> [ks, nt, g, t, (hi, lo), h]
-    return torch.stack([x.reshape(Kp // 8, 2, 4, Np // 8, 8).permute(
-        0, 3, 4, 2, 1) for x in (hi, lo)], dim=4)
+    return hi, lo, _tf32(p - hi - lo)
+
+
+def _fragment_order(x):
+    """[Kp, Np] as [Kp/8, Np/8, 32, 2]: lane 4 g + t of k-step ks and
+    n-tile nt holds (x[8 ks + t, 8 nt + g], x[8 ks + t + 4, 8 nt + g])."""
+    Kp, Np = x.shape
+    # [ks, h, t, nt, g] -> [ks, nt, g, t, h]
+    return x.reshape(Kp // 8, 2, 4, Np // 8, 8).permute(0, 3, 4, 2, 1) \
+        .reshape(Kp // 8, Np // 8, 32, 2)
+
+
+def _frag(op, interleave=False):
+    """``op`` [K, N] as the tensor-core kernels read an operator
+    (``csrc/enhance_mma.cuh``): split into TF32 hi and lo (``_split``) and
+    packed in fragment order [K/8, N/8, 32, 4], lane 4 g + t of k-step ks
+    and n-tile nt holding (b0.hi, b1.hi, b0.lo, b1.lo) with
+    b0 = op[8 ks + t, 8 nt + g] and b1 = op[8 ks + t + 4, 8 nt + g]."""
+    hi, lo, _ = _split(op, interleave)
+    return torch.cat([_fragment_order(hi), _fragment_order(lo)], dim=-1)
+
+
+def _frag_lo2(op, interleave=False):
+    """The third piece of ``op``'s split, lo2 (``_split``), where a kernel
+    takes five TF32 products: [K/8, N/8, 32, 2] of (b0.lo2, b1.lo2)."""
+    return _fragment_order(_split(op, interleave)[2])
 
 
 def _outputs(E, M2, dev, with_diagnostics):
@@ -377,53 +404,64 @@ def _shape_of(ops_rows, n_cols):
     return M, C
 
 
-def _stacked_cuda(fem_values, f, gedge, pts, ops, nx, ny, with_diagnostics):
-    name = "fused_enhance_stacked_2d"
+def _pack_stacked(Wf, Wbc, Pres, Qres, B, pts, with_diagnostics=True):
+    """The statics of stacked2d_kernel (csrc/enhance2d.cu, ``Stacked``):
+    O^T [C^2 + Kb, rows], w's output columns interleaved (B w reads w from
+    the accumulators), and B^T [M^2, Kb], both split and fragment-ordered
+    (``_frag``), then the trace points."""
+    O = _stacked_operator(Wf, Wbc, Pres, Qres, with_diagnostics)
+    return _frag(O.T, interleave=True), _frag(B.T), pts
+
+
+def _pack_shared(Wf, Wbc, D, B, pts):
+    """The statics of shared2d_kernel (csrc/enhance2d.cu, ``Shared``):
+    W^T = [Wf | Wbc]^T [C^2 + Kb, M^2], w's output columns interleaved,
+    split, then the lo2 of its rows from c1 = 8 floor(C^2 / 8) on (the
+    k-steps that take five products); R^T = [D; B]^T [M^2, C^2 + Kb] split,
+    its columns [0, c1) (D's rows alone) and the rest as two blocks; all
+    fragment-ordered (``_frag``); then the trace points.  Output column c
+    of R w is compared with row c of z = [f; bc]."""
+    c1 = Wf.shape[1] // 8 * 8
+    WT = torch.cat([Wf, Wbc], dim=1).T
+    RT = torch.cat([D, B], dim=0).T
+    return (_frag(WT, interleave=True), _frag_lo2(WT[c1:], interleave=True),
+            _frag(RT[:, :c1]), _frag(RT[:, c1:]), pts)
+
+
+def _launch_2d(name, entry, fem_values, f, gedge, pts, ops, mats, pack,
+               nx, ny, with_diagnostics):
     M2, C2 = ops.Wf.shape
     M, C = _shape_of(M2, C2)
     check_kernel_inputs(name, fem_values, M, C, f, gedge)
     lib = _checked_lib(name, "enhance2d", M, C)
     dev = fem_values.device
-
-    def pack(Wf, Wbc, Pres, Qres, B, pts):
-        O = torch.cat([Wf, Wbc], dim=1)
-        if with_diagnostics:
-            O = torch.cat([O, torch.cat([Pres, Qres], dim=1)], dim=0)
-        rows = O.shape[0]
-        OT = torch.zeros(O.shape[1], (rows + 3) // 4 * 4,
-                         dtype=torch.float32, device=dev)
-        OT[:, :rows] = O.T  # transposed, rows padded to float4
-        return OT, B, pts
-
-    statics = _statics(
-        (name, with_diagnostics), dev,
-        (ops.Wf, ops.Wbc, ops.Pres, ops.Qres, ops.B, pts), pack)
+    statics = _statics((name, with_diagnostics), dev, mats, pack)
     w, slack, bcv = _outputs(nx * ny, M2, dev, with_diagnostics)
-    err = lib.enhance2d_stacked_f32(
+    err = getattr(lib, entry)(
         dev.index, _stream(fem_values), _ptr(fem_values), _ptr(f),
         _ptr(gedge), _ptr(statics), _ptr(w), _ptr(slack), _ptr(bcv),
         nx, ny, gedge.shape[2], M, C, int(with_diagnostics))
     _raise_on(lib, "enhance2d", name, err)
-    fused_enhance_stacked_2d.launches += 1
     return w, slack, bcv
+
+
+def _stacked_cuda(fem_values, f, gedge, pts, ops, nx, ny, with_diagnostics):
+    out = _launch_2d(
+        "fused_enhance_stacked_2d", "enhance2d_stacked_f32", fem_values, f,
+        gedge, pts, ops, (ops.Wf, ops.Wbc, ops.Pres, ops.Qres, ops.B, pts),
+        functools.partial(_pack_stacked, with_diagnostics=with_diagnostics),
+        nx, ny, with_diagnostics)
+    fused_enhance_stacked_2d.launches += 1
+    return out
 
 
 def _shared_cuda(fem_values, f, gedge, pts, ops, nx, ny, with_diagnostics):
-    name = "fused_enhance_shared_2d"
-    M2, C2 = ops.Wf.shape
-    M, C = _shape_of(M2, C2)
-    check_kernel_inputs(name, fem_values, M, C, f, gedge)
-    lib = _checked_lib(name, "enhance2d", M, C)
-    dev = fem_values.device
-    statics = _statics(name, dev, (ops.Wf, ops.Wbc, ops.D, ops.B, pts))
-    w, slack, bcv = _outputs(nx * ny, M2, dev, with_diagnostics)
-    err = lib.enhance2d_shared_f32(
-        dev.index, _stream(fem_values), _ptr(fem_values), _ptr(f),
-        _ptr(gedge), _ptr(statics), _ptr(w), _ptr(slack), _ptr(bcv),
-        nx, ny, gedge.shape[2], M, C, int(with_diagnostics))
-    _raise_on(lib, "enhance2d", name, err)
+    out = _launch_2d(
+        "fused_enhance_shared_2d", "enhance2d_shared_f32", fem_values, f,
+        gedge, pts, ops, (ops.Wf, ops.Wbc, ops.D, ops.B, pts), _pack_shared,
+        nx, ny, with_diagnostics)
     fused_enhance_shared_2d.launches += 1
-    return w, slack, bcv
+    return out
 
 
 def _varcoeff_cuda(fem_values, coef, f, gedge, pts, vops, nx, ny, s2,

@@ -165,19 +165,11 @@ def _inputs(fem_values, ops, f_fn, g_fn, geom, nx, ny, nz, t_int, spts,
     return f, gface, _trace_points(spts, dtype, device)
 
 
-def _stacked_operator(Wf, Wbc, Pres, Qres, with_diagnostics):
-    """O = [[Wf, Wbc], [Pres, Qres]], or its first block row alone."""
-    O = torch.cat([Wf, Wbc], dim=1)
-    if with_diagnostics:
-        O = torch.cat([O, torch.cat([Pres, Qres], dim=1)], dim=0)
-    return O
-
-
 def _plain(fem_values, f, gface, pts, ops, nx, ny, nz, with_diagnostics):
     M3 = ops.Wf.shape[0]
     bc = _trace_bc(fem_values, gface, pts, nx, ny, nz)
-    O = _stacked_operator(ops.Wf, ops.Wbc, ops.Pres, ops.Qres,
-                          with_diagnostics)
+    O = K2._stacked_operator(ops.Wf, ops.Wbc, ops.Pres, ops.Qres,
+                             with_diagnostics)
     out = O @ torch.cat([f, bc])
     w = out[:M3]
     if not with_diagnostics:
@@ -192,7 +184,7 @@ def _pack(Wf, Wbc, Pres, Qres, B, pts, with_diagnostics=True):
     output columns interleaved (w feeds B w from the accumulators), and B^T,
     both split and fragment-ordered (``kernels2d._frag``), then the trace
     points."""
-    O = _stacked_operator(Wf, Wbc, Pres, Qres, with_diagnostics)
+    O = K2._stacked_operator(Wf, Wbc, Pres, Qres, with_diagnostics)
     return K2._frag(O.T, interleave=True), K2._frag(B.T), pts
 
 

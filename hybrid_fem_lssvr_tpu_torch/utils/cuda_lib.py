@@ -161,7 +161,9 @@ def _bind(source, lib):
         launchers = ({"enhance2d_elastic_f32": args}
                      if source == "enhance2d_elastic" else
                      {"enhance2d_stacked_f32": args,
-                      "enhance2d_shared_f32": args})
+                      "enhance2d_shared_f32": args,
+                      "enhance2d_launch_shape": [i] * 5
+                      + [ctypes.POINTER(i)] * 2})
     elif source == "enhance2d_varcoeff":
         launchers = {"enhance2d_varcoeff_f32": [i, p, p, p, p, p, p, p, p,
                                                 p, i, i, i, i, i, f, f,

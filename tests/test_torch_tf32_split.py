@@ -1,24 +1,33 @@
 """The arithmetic and the operator layout of the tensor-core enhancement
 kernels, on the CPU.
 
-``csrc/enhance3d.cu`` and ``csrc/enhance2d_elastic.cu`` compute their
-products on the tensor cores in split TF32 (``csrc/enhance_mma.cuh``): each
-float32 operand x becomes hi = tf32(x) and lo = tf32(x - hi), and a product
-a b is summed from lo_a hi_b + hi_a lo_b + hi_a hi_b (3xTF32; the elastic
-w also adds lo_a lo_b).  The emulation below repeats that arithmetic with
+``csrc/enhance3d.cu``, ``csrc/enhance2d_elastic.cu`` and
+``csrc/enhance2d.cu`` compute their products on the tensor cores in split
+TF32 (``csrc/enhance_mma.cuh``): each float32 operand x becomes
+hi = tf32(x) and lo = tf32(x - hi), and a product a b is summed from
+lo_a hi_b + hi_a lo_b + hi_a hi_b (3xTF32; the elastic w also adds
+lo_a lo_b; the 2D shared w also splits the operator a third time,
+lo2_b = tf32(b - hi_b - lo_b), and adds lo_a lo_b and hi_a lo2_b; its D w
+is hi_a hi_b alone).  The emulation below repeats that arithmetic with
 torch on the operators as the wrappers pack them, and holds its w, slack
 and bcv to ``chip_smoke.py``'s tolerances against the plain float32
-versions: w 2e-5 (3D) and 3e-5 (elasticity), bcv 1e-5, the slack per
-element within SLACK_REL of its largest value and in the mean within
-MEAN_RATIO, bcv with B scaled by 1.5 within BCV_SKEWED_REL relative, and w
-on zero nodal values within RHS_REL_TOL relative.  Plain TF32 (hi * hi
-alone) fails the w tolerance, so the checks on the card see a dropped lo
-term.  The packed statics of every compiled (M, C) unpack to the bundle's
+versions: w 2e-5 (3D and 2D stacked), 3e-5 (elasticity) and 1e-5 (2D
+shared), bcv 1e-5, the slack per element within SLACK_REL of its largest
+value and in the mean within MEAN_RATIO, bcv with B scaled by 1.5 within
+BCV_SKEWED_REL relative, and w on zero nodal values within RHS_REL_TOL
+relative.  (In 2D, bcv is held in the mean at 256^2 quads, M = 6: on 16^2
+quads its mean, rounding of an exact zero over 256 quads, moves between
+0.5 and 1.7 of the plain version's with M.)  Plain TF32 (hi * hi alone)
+fails the w tolerance, so the checks on the card see a dropped lo term.
+The packed statics of every compiled (M, C) unpack to the bundle's
 operators with zeros in the padding.
 
 Run as a script at the main paths' sizes (``python
-tests/test_torch_tf32_split.py 1024 128``, about a minute), it prints the
-slack's spread that makes the elastic w take a fourth product.
+tests/test_torch_tf32_split.py 1024 128``, about two minutes), it prints
+the slack's spread that makes the elastic w take a fourth product, and
+the 2D constant-coefficient kernels' diagnostics against their plain
+versions as the kernels compute them (and the shared one with w in
+3xTF32, which its slack's check refuses).
 """
 
 import dataclasses
@@ -32,9 +41,11 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import chip_smoke as CS  # noqa: E402
-from hybrid_fem_lssvr_tpu_torch import (Solver3DConfig,  # noqa: E402
+from hybrid_fem_lssvr_tpu_torch import (Solver2DConfig,  # noqa: E402
+                                        Solver3DConfig, get_problem_2d,
                                         get_problem_3d)
 from hybrid_fem_lssvr_tpu_torch.models import elastic as EL  # noqa: E402
+from hybrid_fem_lssvr_tpu_torch.models import hybrid2d as H2  # noqa: E402
 from hybrid_fem_lssvr_tpu_torch.models import hybrid3d as H3  # noqa: E402
 from hybrid_fem_lssvr_tpu_torch.ops import kernels2d as K2  # noqa: E402
 from hybrid_fem_lssvr_tpu_torch.ops import (  # noqa: E402
@@ -45,6 +56,7 @@ torch.set_num_threads(1)
 
 N3D = 8  # hexes a side
 NE = 16  # quads a side
+NMEAN = 256  # quads a side where the 2D diagnostics are held in the mean
 
 
 def tf32(x):
@@ -208,7 +220,7 @@ def test_3d_statics_unpack_to_the_bundle(M, C, diag):
     pts = K3._trace_points(spts, torch.float32, "cpu")
     OF, BF, P = K3._pack(ops.Wf, ops.Wbc, ops.Pres, ops.Qres, ops.B, pts,
                          with_diagnostics=diag)
-    O = K3._stacked_operator(ops.Wf, ops.Wbc, ops.Pres, ops.Qres, diag)
+    O = K2._stacked_operator(ops.Wf, ops.Wbc, ops.Pres, ops.Qres, diag)
     for frag, op, inter in ((OF, O.T, True), (BF, ops.B.T, False)):
         got, pad = unfrag(frag, *op.shape, interleave=inter)
         assert_split_of(got, op)
@@ -332,6 +344,266 @@ def test_elastic_statics_unpack_to_the_bundle(M, C):
     assert b1 % 8 == 0 and b1 <= M2
 
 
+# ------------------------------------------- 2D constant coefficients
+
+# kernel -> (wrapper, CUDA kernel, w tolerance of chip_smoke's check)
+KERNELS_2D = {
+    "stacked": (K2.fused_enhance_stacked_2d, "stacked2d_kernel", 2e-5),
+    "shared": (K2.fused_enhance_shared_2d, "shared2d_kernel", 1e-5),
+}
+# The TF32 products of a product: (piece of a, piece of the operator),
+# pieces hi, lo, lo2; small terms first as the kernels sum them.
+PAIRS = {1: ((0, 0),), 3: ((1, 0), (0, 1), (0, 0)),
+         5: ((0, 2), (1, 1), (1, 0), (0, 1), (0, 0))}
+
+
+def shared_split(C2):
+    """Where shared2d_kernel changes its number of products: w's k-steps
+    before k-step C2 // 8 (f rows alone) take 3, the others 5; [D; B] w's
+    columns before c1 = 8 (C2 // 8) (D rows alone) take 1, the others 3."""
+    return C2 // 8, 8 * (C2 // 8)
+
+
+def unfrag_lo2(frag3, K, N, interleave=False):
+    """lo2 of the [K, N] operator held by ``kernels2d._frag_lo2``: lane
+    4 g + t of k-step ks and n-tile nt holds (b0.lo2, b1.lo2); and its
+    padding."""
+    Kp, Np = K2._pad8(K), K2._pad8(N)
+    flat = frag3.reshape(Kp // 8, Np // 8, 32, 2)
+    out = torch.empty(Kp, Np, dtype=frag3.dtype)
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    order = K2._INTERLEAVE if interleave else tuple(range(8))
+    for ks in range(Kp // 8):
+        for nt in range(Np // 8):
+            col = 8 * nt + torch.tensor(order)[g]
+            out[8 * ks + t, col] = flat[ks, nt, :, 0]
+            out[8 * ks + t + 4, col] = flat[ks, nt, :, 1]
+    return out[:K, :N], torch.cat([out[K:].reshape(-1),
+                                   out[:, N:].reshape(-1)])
+
+
+def kstep_mm(a, pieces, terms):
+    """a [E, K] @ op [K, N] as the kernels compute it: a split in hi and lo,
+    the operator given as its pieces (hi, lo[, lo2]), the products of
+    PAIRS[terms] (each exact; ``terms`` one number, or one a k-step) summed
+    a k-step of 8 at a time, each k-step's sum rounded once to float32 and
+    added to the float32 sum to nearest.  (The sums the kernels keep in the
+    tensor cores, which round toward zero, are emulated the same way.)"""
+    ah = tf32(a)
+    parts = (ah, tf32(a - ah))
+    out = torch.zeros(a.shape[0], pieces[0].shape[1], dtype=torch.float32)
+    for ks, k0 in enumerate(range(0, a.shape[1], 8)):
+        n = terms if isinstance(terms, int) else terms[ks]
+        step = sum(parts[i][:, k0:k0 + 8].double()
+                   @ pieces[j][k0:k0 + 8].double() for i, j in PAIRS[n])
+        out = out + step.float()
+    return out
+
+
+def case_2d(kernel, M, zero=False, skew=False, n=NE):
+    """chip_smoke's 2D kernel check at n x n quads: poisson_2d_inhomogeneous,
+    the exact nodal values plus noise inside; the shared kernel's bundle has
+    no residual operators."""
+    p = get_problem_2d("poisson_2d_inhomogeneous")
+    cfg = Solver2DConfig(nx=n, ny=n, M=M, n_colloc=M, dtype="float32")
+    ops, (t_int, bpts) = H2.prepare_shared_2d(p, cfg)
+    if kernel == "shared":
+        ops = dataclasses.replace(ops, Pres=None, Qres=None)
+    if skew:
+        ops = dataclasses.replace(ops, B=1.5 * ops.B)
+    fem = CS.nodal_grid_2d(p, "cpu", n)
+    g = CS.zero_g_2d if zero else p.g
+    if zero:
+        fem = torch.zeros_like(fem)
+    return (fem, ops, p.f, g, (-1.0, 2.0 / n) * 2, n, n, t_int, bpts), \
+        dict(f_shifted_fn=p.f_shifted)
+
+
+def operators_2d(kernel, ops, pts, diag=True):
+    """The pieces of the 2D kernel's two products with their padding, read
+    back from the statics as packed: stacked, O^T and B^T (hi, lo); shared,
+    [Wf | Wbc]^T (hi, lo, lo2) and [D; B]^T (hi, lo).  And the trace
+    points."""
+    M2, C2 = ops.Wf.shape
+    Kb = ops.B.shape[0]
+    if kernel == "stacked":
+        OF, BF, P = K2._pack_stacked(ops.Wf, ops.Wbc, ops.Pres, ops.Qres,
+                                     ops.B, pts, with_diagnostics=diag)
+        rows = M2 + C2 if diag else M2
+        return unfrag(OF, C2 + Kb, rows, interleave=True), \
+            unfrag(BF, M2, Kb), P
+    WF, WF3, RF1, RF2, P = K2._pack_shared(ops.Wf, ops.Wbc, ops.D, ops.B,
+                                           pts)
+    c1 = shared_split(C2)[1]
+    (hi, lo), pad = unfrag(WF, C2 + Kb, M2, interleave=True)
+    lo2, pad3 = unfrag_lo2(WF3, C2 + Kb - c1, M2, interleave=True)
+    lo2 = torch.cat([torch.zeros(c1, M2), lo2])  # k-steps of 3 products
+    (r1h, r1l), pad1 = unfrag(RF1, M2, c1)
+    (r2h, r2l), pad2 = unfrag(RF2, M2, C2 + Kb - c1)
+    return ((hi, lo, lo2), torch.cat([pad, pad3])), \
+        ((torch.cat([r1h, r2h], 1), torch.cat([r1l, r2l], 1)),
+         torch.cat([pad1, pad2])), P
+
+
+def emulate_2d_z(kernel, ops, z, w_terms=None, parts=None):
+    """What stacked2d_kernel or shared2d_kernel computes from z = [f; bc]
+    [C^2 + Kb, E], with the products as packed (``parts``, else packed
+    here) and the first in ``w_terms`` products a k-step (the kernel's by
+    default): (w, slack, bcv)."""
+    M2, C2 = ops.Wf.shape
+    if parts is None:
+        parts = operators_2d(kernel, ops, None)
+    (first, _), (second, _), _ = parts
+    if kernel == "stacked":  # 3xTF32 throughout; B w against the trace
+        out = kstep_mm(z.T, first, w_terms or 3)
+        w = out[:, :M2]
+        bcv = (z[C2:].T - kstep_mm(w, second, 3)).abs().amax(1)
+        return w, out[:, M2:].abs().amax(1), bcv
+    kf, c1 = shared_split(C2)
+    w = kstep_mm(z.T, first, w_terms
+                 or [3] * kf + [5] * (K2._pad8(z.shape[0]) // 8 - kf))
+    r = torch.cat([kstep_mm(w, tuple(x[:, :c1] for x in second), 1),
+                   kstep_mm(w, tuple(x[:, c1:] for x in second), 3)], 1)
+    r = (z.T - r).abs()  # [D; B] w against z
+    return w, r[:, :C2].amax(1), r[:, C2:].amax(1)
+
+
+def emulate_2d(kernel, args, kw, w_terms=None):
+    fem, ops, f_fn, g_fn, geom, nx, ny, t_int, bpts = args
+    f, gedge, pts, _ = K2._shared_inputs(fem, f_fn, g_fn, geom, nx, ny,
+                                         t_int, bpts, kw["f_shifted_fn"])
+    z = torch.cat([f, K2._trace_bc(fem, gedge, pts, nx, ny)])
+    return emulate_2d_z(kernel, ops, z, w_terms)
+
+
+@pytest.mark.parametrize("M", [4, 5, 6])
+@pytest.mark.parametrize("kernel", sorted(KERNELS_2D))
+def test_2d_split_meets_the_card_tolerances(kernel, M):
+    wrapper, kname, w_tol = KERNELS_2D[kernel]
+    args, kw = case_2d(kernel, M)
+    got, want = emulate_2d(kernel, args, kw), wrapper(*args, **kw)
+    assert float((got[0] - want[0]).abs().max()) <= w_tol
+    assert float((got[2] - want[2]).abs().max()) <= 1e-5
+    assert 0.05 < float(got[1].max()) / float(want[1].max()) < 20.0
+    check_diagnostic(got[1], want[1], CS.SLACK_REL[kname])
+    assert float((got[2] - want[2]).abs().max()) <= \
+        CS.BCV_REL * float(want[2].max())
+    args, kw = case_2d(kernel, M, skew=True)
+    got_b, want_b = emulate_2d(kernel, args, kw)[2], wrapper(*args, **kw)[2]
+    assert float(want_b.median()) > 1e-3
+    assert float((got_b - want_b).abs().max()) <= \
+        CS.BCV_SKEWED_REL * float(want_b.max())
+    args, kw = case_2d(kernel, M, zero=True)
+    w_rhs, w_plain = emulate_2d(kernel, args, kw)[0], wrapper(*args, **kw)[0]
+    size = float(w_plain.abs().max())
+    assert size > 0
+    assert float((w_rhs - w_plain).abs().max()) <= CS.RHS_REL_TOL * size
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS_2D))
+def test_2d_split_diagnostics_in_the_mean(kernel):
+    """The diagnostics' means at M = 6, the main path's shape, on 256^2
+    quads, where bcv, rounding of an exact zero, is averaged over enough
+    quads (on 16^2 its mean moves between 0.5 and 1.7 of the plain
+    version's with M; chip_smoke holds it at 1024^2)."""
+    wrapper, kname, _ = KERNELS_2D[kernel]
+    args, kw = case_2d(kernel, 6, n=NMEAN)
+    got, want = emulate_2d(kernel, args, kw), wrapper(*args, **kw)
+    check_diagnostic(got[1], want[1], CS.SLACK_REL[kname])
+    check_diagnostic(got[2], want[2], CS.BCV_REL)
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS_2D))
+def test_2d_plain_tf32_fails_the_w_tolerance(kernel):
+    wrapper, _, w_tol = KERNELS_2D[kernel]
+    args, kw = case_2d(kernel, 6)
+    got = emulate_2d(kernel, args, kw, w_terms=1)[0]
+    assert float((got - wrapper(*args, **kw)[0]).abs().max()) > w_tol
+
+
+@pytest.mark.parametrize("kernel,diag", [("stacked", True),
+                                         ("stacked", False),
+                                         ("shared", True)])
+@pytest.mark.parametrize("M,C", K2.SHAPES)
+def test_2d_statics_unpack_to_the_bundle(kernel, diag, M, C):
+    p = get_problem_2d("poisson_2d")
+    cfg = Solver2DConfig(nx=2, ny=2, M=M, n_colloc=C, dtype="float32")
+    ops, (_, bpts) = H2.prepare_shared_2d(p, cfg)
+    pts = K2._trace_points(bpts, torch.float32, "cpu")
+    (first, p0), (second, p1), P = operators_2d(kernel, ops, pts, diag)
+    assert not p0.any() and not p1.any()
+    assert P is pts
+    if kernel == "stacked":
+        assert_split_of(first, K2._stacked_operator(
+            ops.Wf, ops.Wbc, ops.Pres, ops.Qres, diag).T)
+    else:
+        W = torch.cat([ops.Wf, ops.Wbc], dim=1).T.to(torch.float32)
+        assert_split_of(first[:2], W)
+        # lo2 where w's k-steps take five products: hi + lo + lo2 = W
+        c1 = shared_split(C * C)[1]
+        hi, lo, lo2 = (x[c1:] for x in first)
+        assert not first[2][:c1].any()
+        assert torch.equal(lo2, tf32(W[c1:] - hi - lo))
+        assert torch.equal(hi.double() + lo.double() + lo2.double(),
+                           W[c1:].double())
+    assert_split_of(second, ops.B.T if kernel == "stacked"
+                    else torch.cat([ops.D, ops.B]).T)
+    # csrc/enhance2d.cu reads z = [f; bc], C^2 + Kb rows, as the k side of
+    # the first product and [8][Kb] trace points
+    assert first[0].shape[0] == C * C + 4 * M - 4 == pts.shape[1] + C * C
+    assert pts.shape[0] == 8
+
+
+def plain_2d_z(kernel, ops, z):
+    """The plain versions' float32 arithmetic (``kernels2d._stacked_plain``,
+    ``_shared_plain``) from z = [f; bc]: (w, slack, bcv)."""
+    M2, C2 = ops.Wf.shape
+    if kernel == "stacked":
+        out = K2._stacked_operator(ops.Wf, ops.Wbc, ops.Pres, ops.Qres,
+                                   True) @ z
+        w = out[:M2]
+        return (w.T, out[M2:].abs().amax(0),
+                (z[C2:] - ops.B @ w).abs().amax(0))
+    w = ops.Wf @ z[:C2] + ops.Wbc @ z[C2:]
+    return (w.T, (z[:C2] - ops.D @ w).abs().amax(0),
+            (z[C2:] - ops.B @ w).abs().amax(0))
+
+
+def spread_2d(n, kernel, chunk=1 << 17):
+    """The 2D kernel's outputs, emulated at n x n quads, M = C = 6, on
+    chip_smoke's poisson_2d_inhomogeneous nodal values, against the plain
+    float32 version, as the kernel computes them (and, for the shared
+    kernel, with w in 3xTF32): w's largest difference (the w tolerance),
+    the slack's and bcv's largest difference relative to the plain
+    version's largest value (SLACK_REL, BCV_REL) and their means over the
+    plain version's (MEAN_RATIO)."""
+    p = get_problem_2d("poisson_2d_inhomogeneous")
+    cfg = Solver2DConfig(nx=n, ny=n, M=6, n_colloc=6, dtype="float32")
+    ops, (t_int, bpts) = H2.prepare_shared_2d(p, cfg)
+    fem = CS.nodal_grid_2d(p, "cpu", n)
+    f, gedge, pts, _ = K2._shared_inputs(fem, p.f, p.g, (-1.0, 2.0 / n) * 2,
+                                         n, n, t_int, bpts, p.f_shifted)
+    z = torch.cat([f, K2._trace_bc(fem, gedge, pts, n, n)])
+    del f
+    parts = operators_2d(kernel, ops, pts)
+    want = [plain_2d_z(kernel, ops, z[:, lo:lo + chunk])
+            for lo in range(0, n * n, chunk)]
+    res = {}
+    for terms in (3, None) if kernel == "shared" else (None,):
+        got = [emulate_2d_z(kernel, ops, z[:, lo:lo + chunk], terms, parts)
+               for lo in range(0, n * n, chunk)]
+        rec = {"w_err": max(float((g[0] - w_[0]).abs().max())
+                            for g, w_ in zip(got, want))}
+        for i, what in ((1, "slack"), (2, "bcv")):
+            a = torch.cat([g[i] for g in got])
+            b = torch.cat([w_[i] for w_ in want])
+            rec[f"{what}_rel"] = float((a - b).abs().max()) / float(b.max())
+            rec[f"{what}_mean_ratio"] = float(a.mean()) / float(b.mean())
+        res["w 3xTF32" if terms else "as the kernel"] = rec
+    return res
+
+
 def slack_spread(n, M=6, chunk=1 << 17):
     """The elastic slack of the emulated kernel against the plain float32
     version at n x n quads (chip_smoke's nodal values and problem): the
@@ -382,7 +654,7 @@ def slack_spread_3d(n, chunk=1 << 17):
     OF = K3._pack(ops.Wf, ops.Wbc, ops.Pres, ops.Qres, ops.B, pts)[0]
     M3, C3 = ops.Wf.shape
     OT = unfrag(OF, C3 + bc.shape[0], M3 + C3, interleave=True)[0]
-    O = K3._stacked_operator(ops.Wf, ops.Wbc, ops.Pres, ops.Qres, True)
+    O = K2._stacked_operator(ops.Wf, ops.Wbc, ops.Pres, ops.Qres, True)
     size = diff = w_err = 0.0
     for lo in range(0, n ** 3, chunk):
         zc = torch.cat([f[:, lo:lo + chunk], bc[:, lo:lo + chunk]])
@@ -409,3 +681,8 @@ if __name__ == "__main__":
     print(f"poisson_3d_inhomogeneous {n3}^3, M=4, 3xTF32: slack differs "
           f"from the plain version's by {rel:.2e} of its largest value, w "
           f"by {w_err:.2e}")
+    for kernel in sorted(KERNELS_2D):
+        for key, rec in spread_2d(n, kernel).items():
+            print(f"poisson_2d_inhomogeneous {n}x{n}, M=6, {kernel}, w "
+                  f"{key}: " + ", ".join(f"{k} {v:.4g}"
+                                         for k, v in rec.items()))

@@ -383,20 +383,20 @@ template <class L, class Kernel>
 int shape_of(Kernel kernel, int* cache, int device, size_t* smem,
              cudaError_t* err) {
   *smem = sizeof(float) * L::SMEM;
-  return enh::tc::resident_blocks(kernel, cache, device, kThreads, *smem,
+  return enh::resident_blocks(kernel, cache, device, kThreads, *smem,
                                   err);
 }
 
 template <int M, int C, bool DIAG>
 int shape_stacked(int device, size_t* smem, cudaError_t* err) {
-  static int cache[enh::tc::kMaxDevices] = {};
+  static int cache[enh::kMaxDevices] = {};
   return shape_of<Stacked<M, C, DIAG>>(stacked2d_kernel<M, C, DIAG>, cache,
                                        device, smem, err);
 }
 
 template <int M, int C, bool DIAG>
 int shape_shared(int device, size_t* smem, cudaError_t* err) {
-  static int cache[enh::tc::kMaxDevices] = {};
+  static int cache[enh::kMaxDevices] = {};
   return shape_of<Shared<M, C>>(shared2d_kernel<M, C, DIAG>, cache, device,
                                 smem, err);
 }

@@ -244,9 +244,9 @@ int launch(int device, cudaStream_t st, const float* fem, const float* f,
            const float* gedge, const float* statics, float* w, float* slack,
            float* bcv, int nx, int ny, int nmax) {
   constexpr size_t smem = sizeof(float) * Shape<M, C>::SMEM;
-  static int cache[enh::tc::kMaxDevices] = {};
+  static int cache[enh::kMaxDevices] = {};
   cudaError_t err = cudaSuccess;
-  const int resident = enh::tc::resident_blocks(
+  const int resident = enh::resident_blocks(
       elastic2d_kernel<M, C, DIAG>, cache, device, kThreads, smem, &err);
   if (resident == 0) return (int)err;
   const int tiles = (nx * ny + kTile - 1) / kTile;

@@ -18,92 +18,76 @@
 //   slack = (sx^2 + sy^2) max |g - G y|;   bcv = max |bc - B w|
 //
 // The algebra after G is that of varcoeff2d_qr_kernel
-// (enhance2d_varcoeff.cu): one thread per quad, 64 quads a block, Q (built
-// in place over G), g and R in dynamic shared memory laid out
-// [slot][thread] (conflict-free).  At M = C = 6 that is 748 floats a quad
-// plus 34.6 KB of statics: 226 KB a block, one block (two warps) an SM.
-// Bound on the H100: operations (~2 K^2 C^2 FMAs for the two Gram-Schmidt
-// passes, ~5 K C^2 to form G, 4 Kb C^2 for the trace products); every FMA
-// of the QR reads shared memory, and two warps an SM hide little latency.
+// (enhance2d_varcoeff.cu), in enh::qr::enhance_quad (enhance_qr.cuh): a
+// group of eight lanes a quad, four quads a warp, the quad's Q in the
+// group's registers, dot products as butterflies of warp shuffles.  The
+// kernel gives it the five block weights of each row.  Blocks of kWarps
+// warps are persistent (as many as the card holds at once), each warp
+// walking over groups of four quads; the statics (38 KB at M = C = 6,
+// padded) are loaded once a block.  The bound on the H100 is operations
+// (~2 K^2 C^2 FMAs for the two Gram-Schmidt passes, ~5 K C^2 to form G,
+// 5 Kb C^2 for g); what binds is the QR's chain of dependent shuffle
+// butterflies (enhance_qr.cuh).
 //
 // Built WITHOUT --use_fast_math.  The entry point launches on the caller's
 // stream, never synchronises, allocates nothing, and returns
 // cudaGetLastError().
 
+#include <limits.h>
+
 #include "enhance_common.cuh"
+#include "enhance_qr.cuh"
 
 namespace {
 
-using enh::kEps;
-using enh::load_statics;
-using enh::nan_max;
-using enh::trace_bc;
+namespace qr = enh::qr;
 
-// Shared-memory layout of the statics:
-//   AZ [5][C2][K], AP [5][C2][KB], Z [M2][K], Pbc [M2][KB], B [KB][M2],
-//   pts [8][KB].
+constexpr int kBlocks = 5;  // operator blocks: Lap_xx, Lap_yy, Gx, Gy, I
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+
 template <int M, int C>
-struct Layout {
-  static constexpr int M2 = M * M, C2 = C * C, KB = 4 * M - 4, K = M2 - KB;
-  static constexpr int AZ = 0;
-  static constexpr int AP = AZ + 5 * C2 * K;
-  static constexpr int Z = AP + 5 * C2 * KB;
-  static constexpr int PBC = Z + M2 * K;
-  static constexpr int B = PBC + M2 * KB;
-  static constexpr int PTS = B + KB * M2;
-  static constexpr int SIZE = PTS + 8 * KB;
-};
+using Statics = qr::Statics<M, C, kBlocks>;
 
-struct Geom {
-  float sx, sy, sx2, sy2, inv_s2;
-};
+// The five block weights c_s of each collocation row q and its rhs
+// f_q inv_s2, from the quad's chain factors sx, sy and row scale inv_s2 =
+// 1 / (sx^2 + sy^2) and the coefficients at q (the constants a0, bx, by
+// where var is 0):
+//   c = [-a sx^2, -a sy^2, (bx - a_x) sx, (by - a_y) sy, c] * inv_s2;
+// the slack's scale is sx^2 + sy^2.
+struct Weights {
+  float sx, sy, inv_s2;
+  const float* coef;
+  const float* f;
+  size_t plane;
+  int E, e;
+  float a0, bx, by, c;
+  bool var;
 
-// The five per-point block weights c_s at collocation row q.
-struct Coefs {
-  float a, cx, cy;  // a, bx - a_x, by - a_y at the point
-};
-
-__device__ __forceinline__ void block_weights(const Geom& gm, const Coefs& k,
-                                              float c, float* cs) {
-  cs[0] = -k.a * gm.sx2 * gm.inv_s2;
-  cs[1] = -k.a * gm.sy2 * gm.inv_s2;
-  cs[2] = k.cx * gm.sx * gm.inv_s2;
-  cs[3] = k.cy * gm.sy * gm.inv_s2;
-  cs[4] = c * gm.inv_s2;
-}
-
-// One collocation row q of the scaled system: the K entries of G and the
-// rhs entry g.
-template <int M, int C>
-__device__ __forceinline__ float row_of_G(const float* s, int q,
-                                          const float* cs, float fq,
-                                          const float* bc, float inv_s2,
-                                          float* Grow) {
-  using L = Layout<M, C>;
-  const float* AZ = s + L::AZ;
-  const float* AP = s + L::AP;
-  float dwp = 0.f;
-#pragma unroll
-  for (int b = 0; b < 5; ++b) {
-    float p = 0.f;
-#pragma unroll
-    for (int k = 0; k < L::KB; ++k) p += AP[(b * L::C2 + q) * L::KB + k] * bc[k];
-    dwp += cs[b] * p;
+  __device__ __forceinline__ void operator()(int q, float (&cs)[kBlocks],
+                                             float& fq) const {
+    const size_t o = (size_t)q * E + e;
+    float a = a0, cx = bx, cy = by;
+    if (var) {
+      a = coef[o];
+      cx = bx - coef[plane + o];
+      cy = by - coef[2 * plane + o];
+    }
+    cs[0] = -a * (sx * sx) * inv_s2;
+    cs[1] = -a * (sy * sy) * inv_s2;
+    cs[2] = cx * sx * inv_s2;
+    cs[3] = cy * sy * inv_s2;
+    cs[4] = c * inv_s2;
+    fq = f[o] * inv_s2;
   }
-#pragma unroll
-  for (int k = 0; k < L::K; ++k) {
-    float v = 0.f;
-#pragma unroll
-    for (int b = 0; b < 5; ++b) v += cs[b] * AZ[(b * L::C2 + q) * L::K + k];
-    Grow[k] = v;
-  }
-  return fq * inv_s2 - dwp;
-}
 
-constexpr int kThreads = 64;
+  __device__ __forceinline__ float slack_scale() const {
+    return sx * sx + sy * sy;
+  }
+};
 
 template <int M, int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, qr::kMinBlocks)
 graded2d_kernel(const float* __restrict__ fem, const float* __restrict__ xs,
                 const float* __restrict__ ys, const float* __restrict__ coef,
                 const float* __restrict__ f, const float* __restrict__ gedge,
@@ -111,149 +95,69 @@ graded2d_kernel(const float* __restrict__ fem, const float* __restrict__ xs,
                 float* __restrict__ slack, float* __restrict__ bcv, int nx,
                 int ny, int nmax, float a0, float bx, float by, float c,
                 int var, int diag) {
-  using L = Layout<M, C>;
-  constexpr int K = L::K, C2 = L::C2, KB = L::KB, M2 = L::M2;
-  constexpr int T = kThreads;
+  using S = Statics<M, C>;
   extern __shared__ __align__(16) float s[];
-  load_statics(s, statics, L::SIZE);
-  float* Q = s + L::SIZE + threadIdx.x;  // Q[(k C2 + q) T]
-  float* gs = Q + (size_t)K * C2 * T;    // gs[q T]
-  float* R = gs + (size_t)C2 * T;        // R[(j (j + 1) / 2 + i) T]
+  qr::load_statics<M, C, kBlocks>(s, statics);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane / qr::kLanes, sub = lane % qr::kLanes;
+  float* sc = s + S::SIZE + warp * qr::kGroups * S::kScratch + grp;
   const int E = nx * ny;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  const int ex = e % nx, ey = e / nx;
-  Geom gm;
-  gm.sx = 2.f / (xs[ex + 1] - xs[ex]);
-  gm.sy = 2.f / (ys[ey + 1] - ys[ey]);
-  gm.sx2 = gm.sx * gm.sx;
-  gm.sy2 = gm.sy * gm.sy;
-  gm.inv_s2 = 1.f / (gm.sx2 + gm.sy2);
-  float bc[KB];
-  trace_bc<KB>(fem, gedge, s + L::PTS, e, nx, ny, nmax, bc);
-  const size_t plane = (size_t)C2 * E;
-  auto coefs_at = [&](int q) {
-    Coefs k{a0, bx, by};
-    if (var) {
-      const size_t o = (size_t)q * E + e;
-      k.a = coef[o];
-      k.cx = bx - coef[plane + o];
-      k.cy = by - coef[2 * plane + o];
-    }
-    return k;
-  };
-
-  float Grow[K], cs[5];
-#pragma unroll 1
-  for (int q = 0; q < C2; ++q) {
-    block_weights(gm, coefs_at(q), c, cs);
-    gs[q * T] = row_of_G<M, C>(s, q, cs, f[(size_t)q * E + e], bc, gm.inv_s2,
-                               Grow);
-#pragma unroll
-    for (int k = 0; k < K; ++k) Q[(k * C2 + q) * T] = Grow[k];
+  const int units = (E + qr::kGroups - 1) / qr::kGroups;
+  Weights wt{0.f, 0.f, 0.f, coef, f, (size_t)S::C2 * E, E, 0, a0, bx, by, c,
+             var != 0};
+  for (int u = blockIdx.x * kWarps + warp; u < units;
+       u += gridDim.x * kWarps) {
+    const int e0 = u * qr::kGroups + grp;
+    const bool active = e0 < E;
+    const int e = active ? e0 : E - 1;
+    const int ex = e % nx, ey = e / nx;
+    wt.sx = 2.f / (xs[ex + 1] - xs[ex]);
+    wt.sy = 2.f / (ys[ey + 1] - ys[ey]);
+    wt.inv_s2 = 1.f / (wt.sx * wt.sx + wt.sy * wt.sy);
+    wt.e = e;
+    qr::enhance_quad<M, C, kBlocks>(s, wt, kBlocks, sub, sc, fem, gedge, e,
+                                    nx, ny, nmax, w, slack, bcv, active,
+                                    diag != 0);
   }
-  // CGS2: two Gram-Schmidt passes per column, the reference's batched QR.
-  float v[C2];
-#pragma unroll 1
-  for (int j = 0; j < K; ++j) {
-#pragma unroll
-    for (int q = 0; q < C2; ++q) v[q] = Q[(j * C2 + q) * T];
-    for (int pass = 0; pass < 2; ++pass) {
-#pragma unroll 1
-      for (int i = 0; i < j; ++i) {
-        const float* qi = Q + (size_t)i * C2 * T;
-        float part[4] = {0.f, 0.f, 0.f, 0.f};  // four chains for ILP
-#pragma unroll
-        for (int q = 0; q < C2; ++q) part[q & 3] += qi[q * T] * v[q];
-        const float rij = (part[0] + part[1]) + (part[2] + part[3]);
-        float* r = R + (j * (j + 1) / 2 + i) * T;
-        *r = pass == 0 ? rij : *r + rij;
-#pragma unroll
-        for (int q = 0; q < C2; ++q) v[q] -= rij * qi[q * T];
-      }
-    }
-    float nrm = 0.f;
-#pragma unroll
-    for (int q = 0; q < C2; ++q) nrm += v[q] * v[q];
-    const float rjj = sqrtf(nrm);
-    R[(j * (j + 1) / 2 + j) * T] = rjj;
-    const float inv = 1.f / (rjj + kEps);
-#pragma unroll
-    for (int q = 0; q < C2; ++q) Q[(j * C2 + q) * T] = v[q] * inv;
-  }
-  float y[K];
-#pragma unroll
-  for (int j = K - 1; j >= 0; --j) {
-    float acc = 0.f;
-#pragma unroll 4
-    for (int q = 0; q < C2; ++q) acc += Q[(j * C2 + q) * T] * gs[q * T];
-#pragma unroll
-    for (int i = j + 1; i < K; ++i) acc -= R[(i * (i + 1) / 2 + j) * T] * y[i];
-    y[j] = acc / (R[(j * (j + 1) / 2 + j) * T] + kEps);
-  }
-  // w = Pbc bc + Z y, and bcv = max |bc - B w|.
-  const float* Zm = s + L::Z;
-  const float* Pbc = s + L::PBC;
-  const float* Bm = s + L::B;
-  float* wrow = w + (size_t)e * M2;
-  float bw[KB];
-#pragma unroll
-  for (int k = 0; k < KB; ++k) bw[k] = 0.f;
-#pragma unroll 4
-  for (int m = 0; m < M2; ++m) {
-    float wp = 0.f, zy = 0.f;
-#pragma unroll
-    for (int k = 0; k < KB; ++k) wp += Pbc[m * KB + k] * bc[k];
-#pragma unroll
-    for (int k = 0; k < K; ++k) zy += Zm[m * K + k] * y[k];
-    const float wm = wp + zy;
-    wrow[m] = wm;
-    if (diag) {
-#pragma unroll
-      for (int k = 0; k < KB; ++k) bw[k] += Bm[k * M2 + m] * wm;
-    }
-  }
-  if (!diag) return;
-  float bv = 0.f;
-#pragma unroll
-  for (int k = 0; k < KB; ++k) bv = nan_max(bv, fabsf(bc[k] - bw[k]));
-  float sl = 0.f;
-#pragma unroll 1
-  for (int q = 0; q < C2; ++q) {
-    block_weights(gm, coefs_at(q), c, cs);
-    row_of_G<M, C>(s, q, cs, f[(size_t)q * E + e], bc, gm.inv_s2, Grow);
-    float er = gs[q * T];
-#pragma unroll
-    for (int k = 0; k < K; ++k) er -= Grow[k] * y[k];
-    sl = nan_max(sl, fabsf(er));
-  }
-  slack[e] = (gm.sx2 + gm.sy2) * sl;
-  bcv[e] = bv;
 }
 
 template <int M, int C>
 constexpr size_t smem_bytes() {
-  using L = Layout<M, C>;
-  return sizeof(float) *
-         (L::SIZE + (size_t)kThreads *
-                        ((L::K + 1) * L::C2 + L::K * (L::K + 1) / 2));
+  return sizeof(float) * Statics<M, C>::smem_floats(kWarps);
+}
+
+// The kernel's dynamic shared memory a block and its blocks resident on the
+// card (0 on error, with the CUDA error in *err).
+template <int M, int C>
+int shape(int device, size_t* smem, cudaError_t* err) {
+  static int cache[enh::kMaxDevices] = {};
+  *smem = smem_bytes<M, C>();
+  return enh::resident_blocks(graded2d_kernel<M, C>, cache, device, kThreads,
+                              *smem, err);
+}
+
+int launch_shape(int device, int M, int C, size_t* smem, cudaError_t* err) {
+#define X(m, c) \
+  if (M == m && C == c) return shape<m, c>(device, smem, err);
+  ENH2D_SHAPES(X)
+#undef X
+  *err = cudaErrorInvalidValue;
+  return 0;
 }
 
 template <int M, int C>
-cudaError_t launch(cudaStream_t st, const float* fem, const float* xs,
-                   const float* ys, const float* coef, const float* f,
-                   const float* gedge, const float* statics, float* w,
-                   float* slack, float* bcv, int nx, int ny, int nmax,
-                   float a0, float bx, float by, float c, int var, int diag) {
-  constexpr size_t smem = smem_bytes<M, C>();
-  // Above 48 KB dynamic shared memory is opt-in, per kernel.
-  cudaError_t err = cudaFuncSetAttribute(
-      graded2d_kernel<M, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const int E = nx * ny;
+cudaError_t launch(int device, cudaStream_t st, const float* fem,
+                   const float* xs, const float* ys, const float* coef,
+                   const float* f, const float* gedge, const float* statics,
+                   float* w, float* slack, float* bcv, int nx, int ny,
+                   int nmax, float a0, float bx, float by, float c, int var,
+                   int diag) {
+  size_t smem = 0;
+  cudaError_t err = cudaSuccess;
+  const int resident = shape<M, C>(device, &smem, &err);
+  if (resident == 0) return err;
   graded2d_kernel<M, C>
-      <<<(unsigned)((E + kThreads - 1) / kThreads), kThreads, smem, st>>>(
+      <<<qr::grid_for(nx * ny, kWarps, resident), kThreads, smem, st>>>(
           fem, xs, ys, coef, f, gedge, statics, w, slack, bcv, nx, ny, nmax,
           a0, bx, by, c, var, diag);
   return cudaGetLastError();
@@ -283,17 +187,31 @@ int enhance2d_graded_f32(int device, void* stream, const float* fem,
                          int diag) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (nx < 1 || ny < 1 || (var && coef == nullptr))
+  if (nx < 1 || ny < 1 || (long long)nx * ny > INT_MAX - 64 ||
+      (var && coef == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define X(m, c_)                                                            \
   if (M == m && C == c_)                                                    \
-    return (int)launch<m, c_>(st, fem, xs, ys, coef, f, gedge, statics, w,  \
-                              slack, bcv, nx, ny, nmax, a0, bx, by, c, var, \
-                              diag);
+    return (int)launch<m, c_>(device, st, fem, xs, ys, coef, f, gedge,     \
+                              statics, w, slack, bcv, nx, ny, nmax, a0, bx, \
+                              by, c, var, diag);
   ENH2D_SHAPES(X)
 #undef X
   return (int)cudaErrorInvalidValue;
+}
+
+// The kernel's launch shape at (M, C): dynamic shared memory a block, blocks
+// resident on the card, threads a block.
+int enhance2d_graded_launch_shape(int device, int M, int C, int* smem_bytes,
+                                  int* blocks, int* threads) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  size_t smem = 0;
+  *blocks = launch_shape(device, M, C, &smem, &err);
+  *smem_bytes = (int)smem;
+  *threads = kThreads;
+  return *blocks > 0 ? 0 : (int)err;
 }
 
 }  // extern "C"

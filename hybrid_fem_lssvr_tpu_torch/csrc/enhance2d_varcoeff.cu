@@ -26,7 +26,10 @@
 // stream, never synchronises, allocates nothing, and returns
 // cudaGetLastError().
 
+#include <limits.h>
+
 #include "enhance_common.cuh"
+#include "enhance_qr.cuh"
 
 namespace {
 
@@ -34,8 +37,10 @@ using enh::kEps;
 using enh::load_statics;
 using enh::nan_max;
 using enh::trace_bc;
+namespace qr = enh::qr;
 
-// Shared-memory layout of the statics, common to both kernels:
+// The statics as the host packs them (both kernels take this buffer), and
+// the sne kernel's shared-memory copy of them:
 //   AZ [4][C2][K], AP [4][C2][KB], Z [M2][K], Pbc [M2][KB], B [KB][M2],
 //   pts [8][KB].
 template <int M, int C>
@@ -248,20 +253,51 @@ varcoeff2d_sne_kernel(const float* __restrict__ fem,
 // ---------------------------------------------------------------------------
 // 2. method='qr': CGS2 QR of G (two Gram-Schmidt passes per column),
 //    y = R^-1 Q^T g by back substitution — the algebra of the reference's
-//    batched QR, column by column.
+//    batched QR, column by column, in enh::qr::enhance_quad
+//    (enhance_qr.cuh), shared with graded2d_kernel.
 //
 // The K columns of Q are needed at once: K C^2 = 576 floats a quad at
-// M = C = 6, more than a thread's registers.  Design: one thread per quad,
-// 64 quads a block; Q (built in place over G), g and R live in dynamic
-// shared memory laid out [slot][thread] (conflict-free): (K + 1) C^2 +
-// K (K + 1) / 2 floats a thread, which with the statics is 221 KB a block
-// at M = C = 6: one block, two warps, an SM.  Bound: operations
-// (~2 K^2 C^2 FMAs for the two passes); the low occupancy and one
-// shared-memory read per FMA make it slow next to 'sne'.
-constexpr int kQrThreads = 64;
+// M = C = 6, more than a thread's registers.  Design: a group of eight
+// lanes a quad, four quads a warp, each lane holding five of the 36 rows
+// of Q in registers; dot products are a lane's partial sum and a butterfly
+// of warp shuffles.  The kernel gives the routine each row's weights
+// (-a, -a_x, -a_y and 1 for the constant part).  Blocks of kQrWarps warps
+// are persistent (as many as the card holds at once), each warp walking
+// over groups of four quads; the statics (padded, 32 KB at M = C = 6) are
+// loaded once a block.  Bound: operations (~2 K^2 C^2 FMAs for the two
+// passes); what binds is the QR's chain of dependent shuffle butterflies
+// (enhance_qr.cuh).
+constexpr int kQrBlocks = 4;  // operator blocks: Lap, Gx, Gy, Dconst
+constexpr int kQrWarps = 4;
+constexpr int kQrThreads = 32 * kQrWarps;
 
 template <int M, int C>
-__global__ void __launch_bounds__(kQrThreads)
+using QrStatics = qr::Statics<M, C, kQrBlocks>;
+
+// Row q's weights: G_k = -a AZ0_k - a_x AZ1_k - a_y AZ2_k + AZ3_k and
+// g_q = f_q / s2 - (the same of AP bc); the slack's scale is s2.
+struct QrWeights {
+  const float* coef;
+  const float* f;
+  size_t plane;
+  int E, e;
+  float inv_s2, s2;
+
+  __device__ __forceinline__ float slack_scale() const { return s2; }
+
+  __device__ __forceinline__ void operator()(int q, float (&cs)[kQrBlocks],
+                                             float& fq) const {
+    const size_t o = (size_t)q * E + e;
+    cs[0] = -coef[o];
+    cs[1] = -coef[plane + o];
+    cs[2] = -coef[2 * plane + o];
+    cs[3] = 1.f;
+    fq = f[o] * inv_s2;
+  }
+};
+
+template <int M, int C>
+__global__ void __launch_bounds__(kQrThreads, qr::kMinBlocks)
 varcoeff2d_qr_kernel(const float* __restrict__ fem,
                      const float* __restrict__ coef,
                      const float* __restrict__ f,
@@ -270,113 +306,61 @@ varcoeff2d_qr_kernel(const float* __restrict__ fem,
                      float* __restrict__ w, float* __restrict__ slack,
                      float* __restrict__ bcv, int nx, int ny, int nmax,
                      float inv_s2, float s2, int n_terms, int diag) {
-  using L = Layout<M, C>;
-  constexpr int K = L::K, C2 = L::C2, KB = L::KB;
-  constexpr int T = kQrThreads;
+  using S = QrStatics<M, C>;
   extern __shared__ __align__(16) float s[];
-  load_statics(s, statics, L::SIZE);
-  float* Q = s + L::SIZE + threadIdx.x;        // Q[(k C2 + q) T]
-  float* gs = Q + (size_t)K * C2 * T;          // gs[q T]
-  float* R = gs + (size_t)C2 * T;              // R[(j (j + 1) / 2 + i) T]
+  qr::load_statics<M, C, kQrBlocks>(s, statics);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane / qr::kLanes, sub = lane % qr::kLanes;
+  float* sc = s + S::SIZE + warp * qr::kGroups * S::kScratch + grp;
   const int E = nx * ny;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  const bool has_const = n_terms > 3;
-  float bc[KB];
-  trace_bc<KB>(fem, gedge, s + L::PTS, e, nx, ny, nmax, bc);
-  const float* ca = coef + e;
-  const size_t plane = (size_t)C2 * E;
+  const int units = (E + qr::kGroups - 1) / qr::kGroups;
+  // With n_terms == 3 the constant part is identically zero and skipped.
+  const int nb = n_terms > 3 ? 4 : 3;
+  QrWeights wt{coef, f, (size_t)S::C2 * E, E, 0, inv_s2, s2};
+  for (int u = blockIdx.x * kQrWarps + warp; u < units;
+       u += gridDim.x * kQrWarps) {
+    const int e0 = u * qr::kGroups + grp;
+    const bool active = e0 < E;
+    wt.e = active ? e0 : E - 1;
+    qr::enhance_quad<M, C, kQrBlocks>(s, wt, nb, sub, sc, fem, gedge, wt.e,
+                                      nx, ny, nmax, w, slack, bcv, active,
+                                      diag != 0);
+  }
+}
 
-  float Grow[K];
-#pragma unroll 1
-  for (int q = 0; q < C2; ++q) {
-    const size_t o = (size_t)q * E;
-    gs[q * T] = row_of_G<M, C>(s, q, ca[o], ca[plane + o], ca[2 * plane + o],
-                               f[o + e], bc, inv_s2, has_const, Grow);
-#pragma unroll
-    for (int k = 0; k < K; ++k) Q[(k * C2 + q) * T] = Grow[k];
-  }
-  float v[C2];
-#pragma unroll 1
-  for (int j = 0; j < K; ++j) {
-#pragma unroll
-    for (int q = 0; q < C2; ++q) v[q] = Q[(j * C2 + q) * T];
-    for (int pass = 0; pass < 2; ++pass) {
-#pragma unroll 1
-      for (int i = 0; i < j; ++i) {
-        const float* qi = Q + (size_t)i * C2 * T;
-        float part[4] = {0.f, 0.f, 0.f, 0.f};  // four chains for ILP
-#pragma unroll
-        for (int q = 0; q < C2; ++q) part[q & 3] += qi[q * T] * v[q];
-        const float rij = (part[0] + part[1]) + (part[2] + part[3]);
-        float* r = R + (j * (j + 1) / 2 + i) * T;
-        *r = pass == 0 ? rij : *r + rij;
-#pragma unroll
-        for (int q = 0; q < C2; ++q) v[q] -= rij * qi[q * T];
-      }
-    }
-    float nrm = 0.f;
-#pragma unroll
-    for (int q = 0; q < C2; ++q) nrm += v[q] * v[q];
-    const float rjj = sqrtf(nrm);
-    R[(j * (j + 1) / 2 + j) * T] = rjj;
-    const float inv = 1.f / (rjj + kEps);
-#pragma unroll
-    for (int q = 0; q < C2; ++q) Q[(j * C2 + q) * T] = v[q] * inv;
-  }
-  float y[K];
-#pragma unroll
-  for (int j = K - 1; j >= 0; --j) {
-    float acc = 0.f;
-#pragma unroll 4
-    for (int q = 0; q < C2; ++q) acc += Q[(j * C2 + q) * T] * gs[q * T];
-#pragma unroll
-    for (int i = j + 1; i < K; ++i)
-      acc -= R[(i * (i + 1) / 2 + j) * T] * y[i];
-    y[j] = acc / (R[(j * (j + 1) / 2 + j) * T] + kEps);
-  }
-  const float bv = write_w<M, C>(s, bc, y, w + (size_t)e * L::M2, diag != 0);
-  if (!diag) return;
-  float sl = 0.f;
-#pragma unroll 1
-  for (int q = 0; q < C2; ++q) {
-    const size_t o = (size_t)q * E;
-    row_of_G<M, C>(s, q, ca[o], ca[plane + o], ca[2 * plane + o], f[o + e],
-                   bc, inv_s2, has_const, Grow);
-    float er = gs[q * T];
-#pragma unroll
-    for (int k = 0; k < K; ++k) er -= Grow[k] * y[k];
-    sl = nan_max(sl, fabsf(er));
-  }
-  slack[e] = s2 * sl;
-  bcv[e] = bv;
+// The qr kernel's dynamic shared memory a block and its blocks resident on
+// the card (0 on error, with the CUDA error in *err).
+template <int M, int C>
+int qr_shape(int device, size_t* smem, cudaError_t* err) {
+  static int cache[enh::kMaxDevices] = {};
+  *smem = sizeof(float) * QrStatics<M, C>::smem_floats(kQrWarps);
+  return enh::resident_blocks(varcoeff2d_qr_kernel<M, C>, cache, device,
+                              kQrThreads, *smem, err);
+}
+
+int launch_shape(int device, int M, int C, size_t* smem, cudaError_t* err) {
+#define X(m, c) \
+  if (M == m && C == c) return qr_shape<m, c>(device, smem, err);
+  ENH2D_SHAPES(X)
+#undef X
+  *err = cudaErrorInvalidValue;
+  return 0;
 }
 
 template <int M, int C>
-constexpr size_t qr_smem_bytes() {
-  using L = Layout<M, C>;
-  return sizeof(float) *
-         (L::SIZE + (size_t)kQrThreads *
-                        ((L::K + 1) * L::C2 + L::K * (L::K + 1) / 2));
-}
-
-template <int M, int C>
-cudaError_t launch_qr(cudaStream_t st, const float* fem, const float* coef,
-                      const float* f, const float* gedge,
+cudaError_t launch_qr(int device, cudaStream_t st, const float* fem,
+                      const float* coef, const float* f, const float* gedge,
                       const float* statics, float* w, float* slack,
                       float* bcv, int nx, int ny, int nmax, float inv_s2,
                       float s2, int n_terms, int diag) {
-  constexpr size_t smem = qr_smem_bytes<M, C>();
-  // Above 48 KB dynamic shared memory is opt-in, per kernel.
-  cudaError_t err = cudaFuncSetAttribute(
-      varcoeff2d_qr_kernel<M, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const int E = nx * ny;
+  size_t smem = 0;
+  cudaError_t err = cudaSuccess;
+  const int resident = qr_shape<M, C>(device, &smem, &err);
+  if (resident == 0) return err;
   varcoeff2d_qr_kernel<M, C>
-      <<<(unsigned)((E + kQrThreads - 1) / kQrThreads), kQrThreads, smem,
-         st>>>(fem, coef, f, gedge, statics, w, slack, bcv, nx, ny, nmax,
-               inv_s2, s2, n_terms, diag);
+      <<<qr::grid_for(nx * ny, kQrWarps, resident), kQrThreads, smem, st>>>(
+          fem, coef, f, gedge, statics, w, slack, bcv, nx, ny, nmax, inv_s2,
+          s2, n_terms, diag);
   return cudaGetLastError();
 }
 
@@ -404,16 +388,16 @@ int enhance2d_varcoeff_f32(int device, void* stream, const float* fem,
                            int method, int diag) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (nx < 1 || ny < 1 || n_terms < 3 || n_terms > 4 || method < 0 ||
-      method > 1)
+  if (nx < 1 || ny < 1 || (long long)nx * ny > INT_MAX - 64 || n_terms < 3 ||
+      n_terms > 4 || method < 0 || method > 1)
     return (int)cudaErrorInvalidValue;
   const int E = nx * ny;
   cudaStream_t st = (cudaStream_t)stream;
 #define X(m, c)                                                              \
   if (M == m && C == c) {                                                    \
     if (method == 1)                                                         \
-      return (int)launch_qr<m, c>(st, fem, coef, f, gedge, statics, w,       \
-                                  slack, bcv, nx, ny, nmax, inv_s2, s2,      \
+      return (int)launch_qr<m, c>(device, st, fem, coef, f, gedge, statics, \
+                                  w, slack, bcv, nx, ny, nmax, inv_s2, s2,   \
                                   n_terms, diag);                            \
     varcoeff2d_sne_kernel<m, c>                                              \
         <<<(unsigned)((E + kSneThreads - 1) / kSneThreads), kSneThreads,     \
@@ -425,6 +409,20 @@ int enhance2d_varcoeff_f32(int device, void* stream, const float* fem,
   ENH2D_SHAPES(X)
 #undef X
   return (int)cudaErrorInvalidValue;
+}
+
+// The qr kernel's launch shape at (M, C): dynamic shared memory a block,
+// blocks resident on the card, threads a block.
+int enhance2d_varcoeff_launch_shape(int device, int M, int C,
+                                    int* smem_bytes, int* blocks,
+                                    int* threads) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  size_t smem = 0;
+  *blocks = launch_shape(device, M, C, &smem, &err);
+  *smem_bytes = (int)smem;
+  *threads = kQrThreads;
+  return *blocks > 0 ? 0 : (int)err;
 }
 
 }  // extern "C"

@@ -265,9 +265,9 @@ cudaError_t launch(int device, cudaStream_t st, const float* fem,
                    float* w, float* slack, float* bcv, int nx, int ny, int nz,
                    int F) {
   constexpr size_t smem = sizeof(float) * Layout3<M, C, DIAG>::SMEM;
-  static int cache[enh::tc::kMaxDevices] = {};
+  static int cache[enh::kMaxDevices] = {};
   cudaError_t err = cudaSuccess;
-  const int resident = enh::tc::resident_blocks(
+  const int resident = enh::resident_blocks(
       stacked3d_kernel<M, C, DIAG>, cache, device, kThreads, smem, &err);
   if (resident == 0) return err;
   const int tiles = (nx * ny * nz + kTile - 1) / kTile;

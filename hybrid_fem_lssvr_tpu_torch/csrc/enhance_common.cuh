@@ -89,4 +89,31 @@ __device__ __forceinline__ void trace_bc(const float* __restrict__ fem,
   for (int k = 0; k < KP; ++k) bc[k * stride] = v[k];
 }
 
+// The launch shape of a persistent kernel, queried once per device:
+// opts in to ``smem`` bytes of dynamic shared memory and returns the number
+// of blocks resident on the whole card (0 on error, with the CUDA error in
+// *err).  ``cache`` [kMaxDevices] belongs to the kernel variant.
+constexpr int kMaxDevices = 64;
+template <class Kernel>
+__host__ int resident_blocks(Kernel kernel, int* cache, int device,
+                             int threads, size_t smem, cudaError_t* err) {
+  if (device < 0 || device >= kMaxDevices) {
+    *err = cudaErrorInvalidDevice;
+    return 0;
+  }
+  if (cache[device] > 0) return cache[device];
+  // Above 48 KB dynamic shared memory is opt-in, per kernel.
+  *err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (*err != cudaSuccess) return 0;
+  int sms = 0, per_sm = 0;
+  *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (*err != cudaSuccess) return 0;
+  *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                       threads, smem);
+  if (*err != cudaSuccess) return 0;
+  cache[device] = sms * (per_sm > 0 ? per_sm : 1);
+  return cache[device];
+}
+
 }  // namespace enh

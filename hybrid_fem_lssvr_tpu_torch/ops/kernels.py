@@ -191,9 +191,10 @@ def _shared_plain(fem_values, f, ops, with_diagnostics):
     return w.T.contiguous(), slack, bcv
 
 
-def _varcoeff_plain(fem_values, coef, he, host, h, with_diagnostics):
+def _varcoeff_system(fem_values, coef, he, host, h):
+    """(bc [2, E], wp = Pbc bc [M, E], g [C, E], G: K columns [C, E]) of the
+    elements' scaled systems."""
     C = coef.shape[1]
-    K = host.K
     a2, a1, a0, f = coef[0], coef[1], coef[2], coef[3]  # [C, E]
     if he is not None:
         # Graded mode: fold rho = h_ref / h_e into the coefficients,
@@ -208,7 +209,13 @@ def _varcoeff_plain(fem_values, coef, he, host, h, with_diagnostics):
     Dwp = a2 * apbc[0:C] + a1 * apbc[C:2 * C] + a0 * apbc[2 * C:3 * C]
     g = f * (1.0 / host.s2) - Dwp  # scaled residual rhs [C, E]
     G = [a2 * AZ2[:, k:k + 1] + a1 * AZ1[:, k:k + 1] + a0 * AZ0[:, k:k + 1]
-         for k in range(K)]
+         for k in range(host.K)]
+    return bc, wp, g, G
+
+
+def _varcoeff_plain(fem_values, coef, he, host, h, with_diagnostics):
+    K = host.K
+    bc, wp, g, G = _varcoeff_system(fem_values, coef, he, host, h)
     # CGS2 QR over the K columns (kkt._batched_mgs_qr_factor's algebra).
     Qc = []
     R = [[None] * K for _ in range(K)]
@@ -466,6 +473,19 @@ def fused_enhance_varcoeff_ref(fem_values, problem, host, x0, h,
     coef, he = _sample_varcoeff(fem_values, problem, x0, h, n_colloc,
                                 f_shifted_fn, nodes)
     return _varcoeff_plain(fem_values, coef, he, host, h, with_diagnostics)
+
+
+def varcoeff_least_squares_system(fem_values, problem, host, x0, h,
+                                  n_colloc: int, f_shifted_fn=None,
+                                  nodes=None):
+    """The elements' systems as the plain version of
+    ``fused_enhance_varcoeff`` builds them: (G [E, C, K], g [E, C]),
+    y = argmin ||G y - g||."""
+    _check_varcoeff_args(host)
+    coef, he = _sample_varcoeff(fem_values, problem, x0, h, n_colloc,
+                                f_shifted_fn, nodes)
+    _, _, g, G = _varcoeff_system(fem_values, coef, he, host, h)
+    return torch.stack(G, dim=-1).transpose(0, 1).contiguous(), g.T
 
 
 _WRAPPERS = (fused_enhance_separable, fused_enhance_shared,

@@ -212,7 +212,8 @@ def _shared_plain(fem_values, f, gedge, pts, ops, nx, ny, with_diagnostics):
     return w.T.contiguous(), slack, bcv
 
 
-def _varcoeff_plain_chunk(coef, f, bc, vops, s2, method, with_diagnostics):
+def _varcoeff_system(coef, f, bc, vops, s2):
+    """One chunk of quads' (wp = Pbc bc [M2, E], g [E, C2], G [E, C2, K])."""
     C2 = f.shape[0]
     a, ax, ay = coef[0], coef[1], coef[2]  # [C2, E]
     AZ = vops.AZ.reshape(4, C2, -1)
@@ -222,6 +223,11 @@ def _varcoeff_plain_chunk(coef, f, bc, vops, s2, method, with_diagnostics):
     g = (f * (1.0 / s2) - Dwp).T  # scaled residual rhs [E, C2]
     G = (-a.T[:, :, None] * AZ[0] - ax.T[:, :, None] * AZ[1]
          - ay.T[:, :, None] * AZ[2] + AZ[3])  # [E, C2, K]
+    return wp, g, G
+
+
+def _varcoeff_plain_chunk(coef, f, bc, vops, s2, method, with_diagnostics):
+    wp, g, G = _varcoeff_system(coef, f, bc, vops, s2)
     if method == "qr":
         lstsq, _ = kkt._batched_mgs_qr_factor(G)
         y = lstsq(g)
@@ -612,6 +618,20 @@ def fused_enhance_varcoeff_2d_ref(fem_values, vops, a_fn, grad_a, f_fn, g_fn,
         bpts, f_shifted_fn, method)
     return _varcoeff_plain(fem_values, coef, f, gedge, pts, vops, nx, ny, s2,
                            method, with_diagnostics)
+
+
+def varcoeff_least_squares_system(fem_values, vops, a_fn, grad_a, f_fn,
+                                  g_fn, geom, nx, ny, t_int, bpts, s2,
+                                  f_shifted_fn=None):
+    """The quads' systems as the plain version of
+    ``fused_enhance_varcoeff_2d`` builds them (either method): (G [E, C^2,
+    K], g [E, C^2]), y = argmin ||G y - g||."""
+    coef, f, gedge, pts = _varcoeff_inputs(
+        fem_values, vops, a_fn, grad_a, f_fn, g_fn, geom, nx, ny, t_int,
+        bpts, f_shifted_fn, "qr")
+    bc = _trace_bc(fem_values, gedge, pts, nx, ny)
+    _, g, G = _varcoeff_system(coef, f, bc, vops, s2)
+    return G, g
 
 
 _WRAPPERS = (fused_enhance_stacked_2d, fused_enhance_shared_2d,

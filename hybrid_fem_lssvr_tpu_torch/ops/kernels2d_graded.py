@@ -106,8 +106,8 @@ def _geometry(xs, ys, nx, ny, dtype):
     return sx, sy, 1.0 / (sx * sx + sy * sy)
 
 
-def _plain_chunk(cs, f, bc, gops, inv_s2, s2, with_diagnostics):
-    """The per-quad algebra on one chunk of quads (last axis)."""
+def _system(cs, f, bc, gops, inv_s2):
+    """One chunk of quads' (wp = Pbc bc [M2, E], g [E, C2], G [E, C2, K])."""
     C2 = f.shape[0]
     AZ = gops.AZ.reshape(5, C2, -1)
     wp = gops.Pbc @ bc  # [M2, E]
@@ -115,6 +115,12 @@ def _plain_chunk(cs, f, bc, gops, inv_s2, s2, with_diagnostics):
     Dwp = sum(cs[s] * apbc[s] for s in range(5))
     g = (f * inv_s2 - Dwp).T  # [E, C2]
     G = sum(cs[s].T[:, :, None] * AZ[s] for s in range(5))  # [E, C2, K]
+    return wp, g, G
+
+
+def _plain_chunk(cs, f, bc, gops, inv_s2, s2, with_diagnostics):
+    """The per-quad algebra on one chunk of quads (last axis)."""
+    wp, g, G = _system(cs, f, bc, gops, inv_s2)
     lstsq, _ = kkt._batched_mgs_qr_factor(G)
     y = lstsq(g)
     w = wp + gops.Z @ y.T  # [M2, E]
@@ -126,8 +132,9 @@ def _plain_chunk(cs, f, bc, gops, inv_s2, s2, with_diagnostics):
     return w.T, slack, bcv
 
 
-def _plain(fem_values, coef, f, gedge, pts, gops, problem, xs, ys, nx, ny,
-           with_diagnostics):
+def _chunks(fem_values, coef, f, gedge, pts, problem, xs, ys, nx, ny):
+    """(cs, f, bc, inv_s2, sx^2 + sy^2) of each chunk of PLAIN_CHUNK quads:
+    the five block weights c_s [C2, E] and the rest on the quads' axis."""
     dtype = fem_values.dtype
     bc = K2._trace_bc(fem_values, gedge, pts, nx, ny)
     sx, sy, inv_s2 = _geometry(xs, ys, nx, ny, dtype)
@@ -139,16 +146,20 @@ def _plain(fem_values, coef, f, gedge, pts, gops, problem, xs, ys, nx, ny,
     else:
         a, cx, cy = coef[0], bx - coef[1], by - coef[2]
     sx2, sy2 = sx * sx, sy * sy
-    E = nx * ny
-    parts = []
-    for lo in range(0, E, PLAIN_CHUNK):
+    for lo in range(0, nx * ny, PLAIN_CHUNK):
         sl = slice(lo, lo + PLAIN_CHUNK)
         i2 = inv_s2[:, sl]
         cs = (-a[:, sl] * sx2[:, sl] * i2, -a[:, sl] * sy2[:, sl] * i2,
               cx[:, sl] * sx[:, sl] * i2, cy[:, sl] * sy[:, sl] * i2,
               problem.c * i2 * torch.ones_like(f[:, sl]))
-        parts.append(_plain_chunk(cs, f[:, sl], bc[:, sl], gops, i2,
-                                  (sx2 + sy2)[:, sl], with_diagnostics))
+        yield cs, f[:, sl], bc[:, sl], i2, (sx2 + sy2)[:, sl]
+
+
+def _plain(fem_values, coef, f, gedge, pts, gops, problem, xs, ys, nx, ny,
+           with_diagnostics):
+    parts = [_plain_chunk(cs, fc, bc, gops, i2, s2, with_diagnostics)
+             for cs, fc, bc, i2, s2 in _chunks(fem_values, coef, f, gedge,
+                                               pts, problem, xs, ys, nx, ny)]
     w = torch.cat([p[0] for p in parts]).contiguous()
     if not with_diagnostics:
         return w, None, None
@@ -215,6 +226,20 @@ def fused_enhance_graded_2d_ref(fem_values, gops, problem, xs, ys, nx, ny,
                                   t_int, bpts)
     return _plain(fem_values, coef, f, gedge, pts, gops, problem, xs, ys, nx,
                   ny, with_diagnostics)
+
+
+def least_squares_system(fem_values, gops, problem, xs, ys, nx, ny, t_int,
+                         bpts):
+    """The quads' systems as the plain version builds them: (G [E, C^2, K],
+    g [E, C^2]), y = argmin ||G y - g||."""
+    _check(gops)
+    coef, f, gedge, pts = _sample(fem_values, problem, xs, ys, nx, ny,
+                                  t_int, bpts)
+    gs, Gs = zip(*(_system(cs, fc, bc, gops, i2)[1:]
+                   for cs, fc, bc, i2, _ in _chunks(
+                       fem_values, coef, f, gedge, pts, problem, xs, ys, nx,
+                       ny)))
+    return torch.cat(Gs), torch.cat(gs)
 
 
 reset_launch_counts()

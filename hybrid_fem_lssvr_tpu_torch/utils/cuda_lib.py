@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # One shared library per source, so that the sources compile in parallel.
 SOURCES = ("enhance1d", "enhance2d", "enhance2d_varcoeff", "enhance2d_graded",
            "enhance2d_elastic", "enhance3d")
-_HEADERS = ("enhance_common.cuh", "enhance_mma.cuh")
+_HEADERS = ("enhance_common.cuh", "enhance_mma.cuh", "enhance_qr.cuh")
 
 _libs = {}
 
@@ -113,8 +113,9 @@ def _demangle(names):
 
 
 def ptxas_summary(log: str):
-    """[{kernel, M, C, params, registers, spill_stores, spill_loads}] parsed
-    from ``-Xptxas -v`` output.  ``params`` lists every integer or boolean
+    """[{kernel, M, C, params, registers, stack_frame, spill_stores,
+    spill_loads}] parsed from ``-Xptxas -v`` output (stack_frame where the
+    output states it).  ``params`` lists every integer or boolean
     template argument of the kernel; M and C are the first two."""
     rows, cur = [], None
     for line in log.splitlines():
@@ -125,6 +126,9 @@ def ptxas_summary(log: str):
             continue
         if cur is None:
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            cur["stack_frame"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -167,10 +171,14 @@ def _bind(source, lib):
     elif source == "enhance2d_varcoeff":
         launchers = {"enhance2d_varcoeff_f32": [i, p, p, p, p, p, p, p, p,
                                                 p, i, i, i, i, i, f, f,
-                                                i, i, i]}
+                                                i, i, i],
+                     "enhance2d_varcoeff_launch_shape": [i] * 3
+                     + [ctypes.POINTER(i)] * 3}
     elif source == "enhance2d_graded":
         launchers = {"enhance2d_graded_f32": [i] + [p] * 11 + [i] * 5
-                     + [f] * 4 + [i, i]}
+                     + [f] * 4 + [i, i],
+                     "enhance2d_graded_launch_shape": [i] * 3
+                     + [ctypes.POINTER(i)] * 3}
     else:
         launchers = {"enhance3d_stacked_f32": [i] + [p] * 8 + [i] * 7}
     for name, argtypes in launchers.items():

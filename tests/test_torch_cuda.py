@@ -271,7 +271,8 @@ def test_shared_2d_kernels_match_plain(dev, M, C, nx, ny, diag):
 
 @pytest.mark.parametrize("diag", [True, False])
 @pytest.mark.parametrize("method", K2.METHODS)
-@pytest.mark.parametrize("nx,ny", [(1, 1), (5, 3), (64, 48), (131, 67)])
+@pytest.mark.parametrize("nx,ny", [(1, 1), (5, 3), (64, 48), (131, 67),
+                                   (257, 131)])
 @pytest.mark.parametrize("M,C", K2.SHAPES)
 def test_varcoeff_2d_kernel_matches_plain(dev, M, C, nx, ny, method, diag):
     p, ops, fem, geom, t_int, bpts = inputs_2d("variable_coeff_elliptic_2d",
@@ -601,7 +602,8 @@ def inputs_graded(name, nx, ny, M, C, dev, seed=0):
 
 
 @pytest.mark.parametrize("diag", [True, False])
-@pytest.mark.parametrize("nx,ny", [(1, 1), (5, 3), (64, 48), (131, 67)])
+@pytest.mark.parametrize("nx,ny", [(1, 1), (5, 3), (64, 48), (131, 67),
+                                   (257, 131)])
 @pytest.mark.parametrize("M,C", K2.SHAPES)
 def test_graded_2d_kernel_matches_plain(dev, M, C, nx, ny, diag):
     KG.reset_launch_counts()

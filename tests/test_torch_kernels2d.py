@@ -353,7 +353,7 @@ def test_statics_are_packed_once_per_bundle():
 
 
 def test_ptxas_summary_reads_template_arguments(monkeypatch):
-    """Registers and spills per kernel instantiation from nvcc's
+    """Registers, stack frame and spills per kernel instantiation from nvcc's
     ``-Xptxas -v`` output, named through the toolkit's demangler; without
     one the rows keep the mangled names."""
     from hybrid_fem_lssvr_tpu_torch.utils import cuda_lib
@@ -375,7 +375,8 @@ def test_ptxas_summary_reads_template_arguments(monkeypatch):
     assert a == dict(kernel="stacked2d_kernel", M=6, C=6, params=[6, 6, 1],
                      registers=160, spill_stores=0, spill_loads=0)
     assert b == dict(kernel="varcoeff2d_sne_kernel", M=5, C=5, params=[5, 5],
-                     registers=255, spill_stores=24, spill_loads=12)
+                     registers=255, stack_frame=24, spill_stores=24,
+                     spill_loads=12)
     monkeypatch.setattr(cuda_lib, "_demangle", list)
     raw = cuda_lib.ptxas_summary(log)[0]
     assert raw["kernel"].startswith("_ZN3abc") and raw["M"] is None

@@ -218,6 +218,10 @@ def busy_ms(events, skip=()):
     return (busy + hi - lo) / 1e3
 
 
+class IncompleteProfile(RuntimeError):
+    """Every profile of a call lost a device record (device_ms)."""
+
+
 def device_ms(fn, kernel=None, reps=REPS):
     """(busy, kernel) device milliseconds per fn() call, averaged over
     ``reps`` calls under torch.profiler: busy is the union of the intervals
@@ -278,8 +282,25 @@ def device_ms(fn, kernel=None, reps=REPS):
               f"incomplete: {len(timed)} device records for {len(calls)} "
               f"launch calls, {len(own)} of {kernel}; calls without a "
               f"record: {dict(missing)}", file=sys.stderr, flush=True)
-    raise RuntimeError(f"device_ms: {PROFILE_TRIES} incomplete profiles of "
-                       f"{kernel or 'a call'} in {reps} calls")
+    raise IncompleteProfile(f"device_ms: {PROFILE_TRIES} incomplete "
+                            f"profiles of {kernel or 'a call'} in {reps} "
+                            f"calls")
+
+
+def library_ms(fn, reps=REPS):
+    """(ms, timing) of a library yardstick call: device_ms's busy time
+    (timing "profiler"), or, where every profile of the call lost a device
+    record, its CUDA-event wall time (cuda_ms, timing "cuda_events": it
+    adds the host's launch overhead, microseconds against the milliseconds
+    timed here).  On an H100 with PyTorch 2.11 and CUDA 12.8 every profile
+    of the 3D torch.mm lost two of its twenty kernel records.  The port's
+    own kernels are always timed by device_ms."""
+    try:
+        return device_ms(fn, reps=reps)[0], "profiler"
+    except IncompleteProfile as err:
+        print(f"library_ms: {err}; timed with CUDA events instead",
+              file=sys.stderr, flush=True)
+        return cuda_ms(fn, reps=reps), "cuda_events"
 
 
 def max_err(a, b):
@@ -311,33 +332,47 @@ def emit_ptxas(name, kname):
         if r["kernel"] == kname])
 
 
-def emit_launch_shape(name, kname, query):
-    """The ptxas rows of the persistent per-quad kernel ``kname`` and its
-    launch shape at every compiled (M, C): dynamic shared memory a block,
-    blocks resident on the card, and blocks and warps resident an SM.
-    ``query(device, M, C, &smem, &blocks, &threads)`` is its source's C
-    entry point."""
+def emit_launch_shape(name, kname, query, shapes=None):
+    """The ptxas rows of the persistent kernel ``kname`` and its launch
+    shape at every compiled (M, C) of ``shapes`` (the 2D ones by default):
+    dynamic shared memory a block, blocks resident on the card, and blocks
+    and warps resident an SM.  ``query(device, M, C, &smem, &blocks,
+    &threads)`` is its source's C entry point.  Fails where ptxas reports a
+    spill or a stack frame for the kernel at any shape."""
     import ctypes
 
     import torch
 
     from hybrid_fem_lssvr_tpu_torch.ops import kernels2d as K2
+    from hybrid_fem_lssvr_tpu_torch.utils import cuda_lib
 
+    shapes = K2.SHAPES if shapes is None else shapes
     dev = torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    shapes = []
-    for M_, C_ in K2.SHAPES:
+    out = []
+    for M_, C_ in shapes:
         smem, blocks, threads = (ctypes.c_int(0) for _ in range(3))
         err = query(dev, M_, C_, ctypes.byref(smem), ctypes.byref(blocks),
                     ctypes.byref(threads))
         check(err == 0, f"{kname}: launch shape of M={M_}, C={C_}: CUDA "
               f"error {err}")
         per_sm = blocks.value // sms
-        shapes.append(dict(M=M_, C=C_, smem_bytes=smem.value,
-                           resident_blocks=blocks.value, blocks_per_sm=per_sm,
-                           warps_per_sm=per_sm * threads.value // 32))
-    emit_ptxas(name, kname)
-    emit("launch_shape", name=name, kernel=kname, shapes=shapes)
+        out.append(dict(M=M_, C=C_, smem_bytes=smem.value,
+                        resident_blocks=blocks.value, blocks_per_sm=per_sm,
+                        warps_per_sm=per_sm * threads.value // 32))
+    rows = [r for r in cuda_lib.ptxas_summary(cuda_lib.build_log())
+            if r["kernel"] == kname]
+    emit("ptxas", name=name, rows=rows)
+    check(sorted((r["M"], r["C"]) for r in rows) == sorted(shapes),
+          f"{kname}: ptxas rows for {[(r['M'], r['C']) for r in rows]}, "
+          f"compiled shapes {list(shapes)}")
+    for r in rows:
+        check(r.get("stack_frame", 0) == 0 and r.get("spill_stores") == 0
+              and r.get("spill_loads") == 0, f"{kname} at M={r['M']}, "
+              f"C={r['C']}: {r.get('stack_frame')} bytes of stack, "
+              f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes of "
+              f"spill stores / loads")
+    emit("launch_shape", name=name, kernel=kname, shapes=out)
 
 
 def lstsq_ms(name, G, g):
@@ -360,7 +395,8 @@ def lstsq_ms(name, G, g):
             call()
             torch.cuda.synchronize()
             if time.perf_counter() - t0 <= LSTSQ_MAX_S or b == 1:
-                ms = device_ms(call, reps=REPS_2D)[0] * E / b
+                ms, timing = library_ms(call, reps=REPS_2D)
+                ms *= E / b
                 break
         except torch.cuda.OutOfMemoryError:
             pass
@@ -369,7 +405,7 @@ def lstsq_ms(name, G, g):
         b = 1 << ((b - 1).bit_length() - 1)  # the power of two below b
     emit("library", name=name, call=f"torch.linalg.lstsq({list(G.shape)}, "
          f"{list(g.shape) + [1]})", timed_batch=b, scaled=b < E,
-         library_ms=ms)
+         library_ms=ms, timing=timing)
     return ms
 
 
@@ -483,12 +519,18 @@ def kernel_inputs(device):
 def phase_kernels(device="cuda"):
     """Each kernel's public wrapper against its plain version (``*_ref``)
     on the same inputs: on the main path's nodal values, and on zero nodal
-    values, where w is the rhs part alone (RHS_REL_TOL)."""
+    values, where w is the rhs part alone (RHS_REL_TOL).  Also the ptxas
+    rows and launch shapes of the persistent varcoeff_kernel."""
     import torch
 
     from hybrid_fem_lssvr_tpu_torch.models import problems
     from hybrid_fem_lssvr_tpu_torch.ops import kernels as K
+    from hybrid_fem_lssvr_tpu_torch.utils import cuda_lib
 
+    emit_launch_shape(
+        "fused_enhance_varcoeff", "varcoeff_kernel",
+        cuda_lib.load("enhance1d").enhance1d_varcoeff_launch_shape,
+        K.SHAPES)
     fem, ops, host, h, graded = kernel_inputs(device)
     gfem = torch.sin(torch.pi * graded)
     pois, vc = problems.poisson_1d(), problems.variable_coeff_elliptic()
@@ -579,10 +621,11 @@ def phase_kernels(device="cuda"):
             ("fused_enhance_shared",
              torch.cat([ops.Wf, ops.Wbc], dim=1), torch.cat([f, bc]))):
         O, z = O.contiguous(), z.contiguous()
-        summary[name]["library_ms"] = device_ms(
-            functools.partial(torch.mm, O, z))[0]
+        summary[name]["library_ms"], timing = library_ms(
+            functools.partial(torch.mm, O, z))
         emit("library", name=name, call=f"torch.mm({list(O.shape)}, "
-             f"{list(z.shape)})", library_ms=summary[name]["library_ms"])
+             f"{list(z.shape)})", library_ms=summary[name]["library_ms"],
+             timing=timing)
     del O, z, a, f
     G, g = K.varcoeff_least_squares_system(fem, vc, host, -1.0, h, C,
                                            f_shifted_fn=vc.f_shifted)
@@ -859,10 +902,11 @@ def phase_kernels_2d(device="cuda"):
     from hybrid_fem_lssvr_tpu_torch.utils import cuda_lib
 
     emit_launch_shapes_2d()
-    emit_ptxas("fused_enhance_varcoeff_2d", "varcoeff2d_sne_kernel")
-    emit_launch_shape(
-        "fused_enhance_varcoeff_2d", "varcoeff2d_qr_kernel",
-        cuda_lib.load("enhance2d_varcoeff").enhance2d_varcoeff_launch_shape)
+    lib = cuda_lib.load("enhance2d_varcoeff")
+    emit_launch_shape("fused_enhance_varcoeff_2d", "varcoeff2d_sne_kernel",
+                      lib.enhance2d_varcoeff_sne_launch_shape)
+    emit_launch_shape("fused_enhance_varcoeff_2d", "varcoeff2d_qr_kernel",
+                      lib.enhance2d_varcoeff_launch_shape)
 
     cfg = Solver2DConfig(nx=N2D, ny=N2D, M=M2D, n_colloc=C2D,
                          dtype="float32")
@@ -949,10 +993,11 @@ def phase_kernels_2d(device="cuda"):
             ("fused_enhance_shared_2d", top.contiguous(), "library_ms"),
             ("fused_enhance_shared_2d", every.contiguous(),
              "library_all_ms")):
-        summary[name][key] = device_ms(
-            functools.partial(torch.mm, O, z), reps=REPS_2D)[0]
+        summary[name][key], timing = library_ms(
+            functools.partial(torch.mm, O, z), reps=REPS_2D)
         emit("library", name=name, call=f"torch.mm({list(O.shape)}, "
-             f"{list(z.shape)})", **{key: summary[name][key]})
+             f"{list(z.shape)})", **{key: summary[name][key]},
+             timing=timing)
     del z, top, full, every
     name = "fused_enhance_varcoeff_2d"
     G, g = K2.varcoeff_least_squares_system(
@@ -1399,10 +1444,11 @@ def phase_kernels_3d(device="cuda"):
     del f
     O = K2._stacked_operator(ops.Wf, ops.Wbc, ops.Pres, ops.Qres,
                              True).contiguous()
-    summary[name]["library_ms"] = device_ms(
-        functools.partial(torch.mm, O, z), reps=REPS_3D)[0]
+    summary[name]["library_ms"], timing = library_ms(
+        functools.partial(torch.mm, O, z), reps=REPS_3D)
     emit("library", name=name, call=f"torch.mm({list(O.shape)}, "
-         f"{list(z.shape)})", library_ms=summary[name]["library_ms"])
+         f"{list(z.shape)})", library_ms=summary[name]["library_ms"],
+         timing=timing)
     del z, bundles
     torch.cuda.empty_cache()
     return summary
@@ -1789,10 +1835,11 @@ def phase_kernels_elastic(device="cuda"):
                                               NE) for c in range(2)])
             del f
             O = torch.cat([ops.Wf, ops.Wbc], dim=1).contiguous()
-            summary[name]["library_ms"] = device_ms(
-                functools.partial(torch.mm, O, z), reps=REPS_2D)[0]
+            summary[name]["library_ms"], timing = library_ms(
+                functools.partial(torch.mm, O, z), reps=REPS_2D)
             emit("library", name=name, call=f"torch.mm({list(O.shape)}, "
-                 f"{list(z.shape)})", library_ms=summary[name]["library_ms"])
+                 f"{list(z.shape)})", library_ms=summary[name]["library_ms"],
+                 timing=timing)
             del z
         torch.cuda.empty_cache()
     # A ragged mesh with fewer quads than one block of threads.

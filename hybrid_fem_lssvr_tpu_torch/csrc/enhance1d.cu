@@ -11,17 +11,20 @@
 // operators ("statics", at most a few hundred floats) are copied once per
 // block into shared memory and read there as warp-wide broadcasts.  Nodal
 // values fem[e], fem[e+1] and the sampled per-element inputs (laid out
-// [rows][E], element index fastest) are read with coalesced loads; all
-// per-element algebra runs in registers, with M and C as template
-// parameters so every small array stays in registers; w is written
-// straight to its [E, M] row.  The ragged edge (E not a multiple of the
-// block) is masked, so any E is accepted.
+// [rows][E], element index fastest) are read with coalesced loads (by
+// varcoeff_kernel through cp.async, one element ahead); all per-element
+// algebra runs in registers, with M and C as template parameters so every
+// small array stays in registers; w is written straight to its [E, M]
+// row.  The ragged edge (E not a multiple of the block) is masked, so any
+// E is accepted.
 //
 // Built WITHOUT --use_fast_math: the diagnostics gate tests isfinite() and
 // the max reductions propagate NaN as jnp.max does on the TPU.
 //
 // Each entry point launches on the caller's stream, never synchronises,
 // allocates nothing, and returns cudaGetLastError().
+
+#include <limits.h>
 
 #include "enhance_common.cuh"
 
@@ -203,138 +206,279 @@ shared_kernel(const float* __restrict__ fem, const float* __restrict__ f,
 //   Diagnostics: slack = s^2 max|g - G y|, bcv = max|bc - B w|,
 //   cond = max R_jj / max(min R_jj, eps).
 //
-// Bound on the H100: bytes, then registers.  Per element it reads 4 C
-// sampled values (a2, a1, a0, f: 192 B at C = 12) and writes ~44 B,
-// against ~4 K^2 C flops of QR (~1.7 kflop at M = 8) — below the card's
-// flop/byte balance, so the memory stream bounds it if the QR stays in
-// registers.  Design: Q (K x C), the coefficients and g live in registers
-// (about 150 floats at M = 8, C = 12); G is never stored — its columns
-// are rebuilt from (a2, a1, a0) when needed.
+// Bound on the H100: bytes.  Per element it reads 4 C sampled values (a2,
+// a1, a0, f: 192 B at C = 12) and writes ~44 B, against ~4 K^2 C flops of
+// QR (~1.7 kflop at M = 8) — below the card's flop/byte balance, so the
+// memory stream bounds it if the instructions an element stay few and
+// the loads overlap the arithmetic.  Design:
+// - Persistent blocks (one wave); each thread walks over the elements e,
+//   e + stride, ...  The next element's 4 C coefficients, its two nodal
+//   values and its width are copied by cp.async into the thread's own
+//   slots of shared memory (two stages) while the current element is
+//   solved, so loads, arithmetic and stores overlap; no barrier is needed
+//   beyond the one after the statics' load.  Slot i of a thread at
+//   [i kVcThreads + thread]: conflict-free.
+// - The statics are packed on the host row by row (ops/kernels.py,
+//   pack_varcoeff) and read as 16-byte broadcasts: row c of G from its
+//   three blocks [3][KP] (six loads at M = 8 for 18 fma).
+// - Q (K x C) and R's upper triangle live in registers; g replaces f in
+//   its slot, and the coefficients are read from the slots where they are
+//   used (G is built twice: for the QR and, with diagnostics, for the
+//   residual), not held, so nothing spills up to M = 12.
+// - Q_j = v (1 / (R_jj + eps)): one reciprocal a column in place of C
+//   divisions.
+// What binds it on the H100 (PERF.md §6): the arithmetic's instruction
+// issue (dropping the residual or the QR's passes cut the time in
+// proportion); holding G for the residual in registers (8 warps an SM)
+// or 16 warps at 128 registers was no faster.
 //
-// statics: AZ [3][C][K], AP [3C][2], Z [M][K], Pbc [M][2], B [2][M].
+// statics: AZ [C][3][KP] (W2 Z, W1 Z, W0 Z of row c), AP [C][8] (W2 Pbc,
+// W1 Pbc, W0 Pbc of row c, two zeros), Z [M][KP], B [2][MP], Pbc [M][2];
+// KP and MP are K and M rounded up to a multiple of 4, zeros in the
+// padding.
+constexpr int kVcThreads = 128;
+
 template <int M, int C>
-__global__ void __launch_bounds__(kThreads)
-varcoeff_kernel(const float* __restrict__ fem, const float* __restrict__ coef,
-                const float* __restrict__ he, const float* __restrict__ statics,
-                float* __restrict__ w, float* __restrict__ slack,
-                float* __restrict__ bcv, float* __restrict__ cond, int E,
-                float h_ref, float inv_s2, float s2, int diag) {
-  constexpr int K = M - 2;
-  extern __shared__ float s[];
-  load_statics(s, statics, 3 * C * K + 6 * C + M * K + 2 * M + 2 * M);
-  const float* AZ2 = s;
-  const float* AZ1 = AZ2 + C * K;
-  const float* AZ0 = AZ1 + C * K;
-  const float* AP = AZ0 + C * K;
-  const float* Z = AP + 6 * C;
-  const float* Pbc = Z + M * K;
-  const float* Bm = Pbc + 2 * M;
+struct VcLayout {
+  static constexpr int K = M - 2, KP = (K + 3) / 4 * 4, MP = (M + 3) / 4 * 4;
+  static constexpr int AZ = 0;
+  static constexpr int AP = AZ + C * 3 * KP;
+  static constexpr int Z = AP + 8 * C;
+  static constexpr int B = Z + M * KP;
+  static constexpr int PBC = B + 2 * MP;
+  static constexpr int SIZE = PBC + 2 * M;
+  // A thread's slots of one stage: the 4 C rows (a2, a1, a0, f), fem[e],
+  // fem[e + 1] and h_e.
+  static constexpr int FEM = 4 * C, HE = FEM + 2, SLOTS = HE + 1;
+  static constexpr int smem_floats() {
+    return SIZE + 2 * kVcThreads * SLOTS;
+  }
+};
 
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  float a2[C], a1[C], a0[C], g[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    a2[c] = coef[(size_t)(0 * C + c) * E + e];
-    a1[c] = coef[(size_t)(1 * C + c) * E + e];
-    a0[c] = coef[(size_t)(2 * C + c) * E + e];
-  }
-  if (he != nullptr) {
-    const float rho = h_ref / he[e];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      a2[c] = a2[c] * (rho * rho);
-      a1[c] = a1[c] * rho;
-    }
-  }
-  const float b0 = fem[e], b1 = fem[e + 1];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float p2 = AP[2 * c] * b0 + AP[2 * c + 1] * b1;
-    const float p1 = AP[2 * (C + c)] * b0 + AP[2 * (C + c) + 1] * b1;
-    const float p0 = AP[2 * (2 * C + c)] * b0 + AP[2 * (2 * C + c) + 1] * b1;
-    const float fc = coef[(size_t)(3 * C + c) * E + e];
-    g[c] = fc * inv_s2 - (a2[c] * p2 + a1[c] * p1 + a0[c] * p0);
-  }
+// Starts the copy of element e's inputs into a stage of the thread's slots.
+template <int M, int C>
+__device__ __forceinline__ void vc_fetch(float* slot,
+                                         const float* __restrict__ coef,
+                                         const float* __restrict__ fem,
+                                         const float* __restrict__ he, int e,
+                                         int E) {
+  using L = VcLayout<M, C>;
+  constexpr int T = kVcThreads;
+#pragma unroll 4
+  for (int r = 0; r < 4 * C; ++r)
+    enh::cp_async4(slot + r * T, coef + (size_t)r * E + e);
+  enh::cp_async4(slot + L::FEM * T, fem + e);
+  enh::cp_async4(slot + (L::FEM + 1) * T, fem + e + 1);
+  if (he != nullptr) enh::cp_async4(slot + L::HE * T, he + e);
+}
 
+// Row c of G: G[k] = a0 (W0 Z)_ck + (a1 (W1 Z)_ck + a2 (W2 Z)_ck), one
+// fma a term.
+template <int M, int C>
+__device__ __forceinline__ void vc_row_G(const float* s, int c, float a2,
+                                         float a1, float a0, float* G) {
+  using L = VcLayout<M, C>;
+  const float* az = s + L::AZ + c * 3 * L::KP;
+#pragma unroll
+  for (int t = 0; t < L::KP / 4; ++t) {
+    const float4 z2 = *reinterpret_cast<const float4*>(az + 4 * t);
+    const float4 z1 = *reinterpret_cast<const float4*>(az + L::KP + 4 * t);
+    const float4 z0 = *reinterpret_cast<const float4*>(az + 2 * L::KP + 4 * t);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (4 * t + i < L::K)
+        G[enh::lim<L::K>(4 * t + i)] = fmaf(
+            a0, enh::part(z0, i), fmaf(a1, enh::part(z1, i),
+                                       a2 * enh::part(z2, i)));
+  }
+}
+
+// The coefficients of row c from a stage of the slots (rho folded in).
+template <int M, int C>
+__device__ __forceinline__ void vc_coefs(const float* in, int c, bool graded,
+                                         float rho, float& a2, float& a1,
+                                         float& a0) {
+  constexpr int T = kVcThreads;
+  a2 = in[c * T];
+  a1 = in[(C + c) * T];
+  a0 = in[(2 * C + c) * T];
+  if (graded) {
+    a2 = a2 * (rho * rho);
+    a1 = a1 * rho;
+  }
+}
+
+// The whole enhancement of element e from a stage of the slots `in`.
+template <int M, int C>
+__device__ __forceinline__ void vc_element(
+    const float* s, float* in, bool graded, int e, float h_ref,
+    float inv_s2, float s2, bool diag, float* __restrict__ w,
+    float* __restrict__ slack, float* __restrict__ bcv,
+    float* __restrict__ cond) {
+  using L = VcLayout<M, C>;
+  constexpr int K = L::K, T = kVcThreads;
+  const float rho = graded ? h_ref / in[L::HE * T] : 1.f;
+  const float b0 = in[L::FEM * T], b1 = in[(L::FEM + 1) * T];
+
+  // G (becoming Q in place) and g, row by row; g replaces f in its slot.
   float q[K][C];
-  float Rm[K][K];
+  float* g = in + 3 * C * T;  // g[c] at g[c T]
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float a2, a1, a0, G[K];
+    vc_coefs<M, C>(in, c, graded, rho, a2, a1, a0);
+    const float4 ap0 = *reinterpret_cast<const float4*>(s + L::AP + 8 * c);
+    const float4 ap1 =
+        *reinterpret_cast<const float4*>(s + L::AP + 8 * c + 4);
+    const float p2 = fmaf(ap0.y, b1, ap0.x * b0);
+    const float p1 = fmaf(ap0.w, b1, ap0.z * b0);
+    const float p0 = fmaf(ap1.y, b1, ap1.x * b0);
+    g[c * T] = __fmul_rn(g[c * T], inv_s2) -
+               fmaf(a0, p0, fmaf(a1, p1, a2 * p2));
+    vc_row_G<M, C>(s, c, a2, a1, a0, G);
+#pragma unroll
+    for (int k = 0; k < K; ++k) q[k][c] = G[k];
+  }
+
+  // CGS2; R_ij (i <= j) at j (j + 1) / 2 + i.
+  float R[K * (K + 1) / 2];
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      q[j][c] = a2[c] * AZ2[c * K + j] + a1[c] * AZ1[c * K + j] +
-                a0[c] * AZ0[c * K + j];
 #pragma unroll
     for (int pass = 0; pass < 2; ++pass) {
 #pragma unroll
       for (int i = 0; i < j; ++i) {
         float rij = 0.f;
 #pragma unroll
-        for (int c = 0; c < C; ++c) rij += q[i][c] * q[j][c];
-        Rm[i][j] = pass == 0 ? rij : Rm[i][j] + rij;
+        for (int c = 0; c < C; ++c) rij = fmaf(q[i][c], q[j][c], rij);
+        R[j * (j + 1) / 2 + i] = pass == 0 ? rij : R[j * (j + 1) / 2 + i] + rij;
 #pragma unroll
-        for (int c = 0; c < C; ++c) q[j][c] = q[j][c] - rij * q[i][c];
+        for (int c = 0; c < C; ++c) q[j][c] = fmaf(-rij, q[i][c], q[j][c]);
       }
     }
     float nrm = 0.f;
 #pragma unroll
-    for (int c = 0; c < C; ++c) nrm += q[j][c] * q[j][c];
+    for (int c = 0; c < C; ++c) nrm = fmaf(q[j][c], q[j][c], nrm);
     const float rjj = sqrtf(nrm);
-    Rm[j][j] = rjj;
+    R[j * (j + 1) / 2 + j] = rjj;
+    const float inv = 1.f / (rjj + kEps);
 #pragma unroll
-    for (int c = 0; c < C; ++c) q[j][c] = q[j][c] / (rjj + kEps);
+    for (int c = 0; c < C; ++c) q[j][c] *= inv;
   }
+  // y = R^-1 Q^T g: Q^T g summed over c in order for every column at once
+  // (g read once from its slot), then back substitution.
   float y[K];
 #pragma unroll
+  for (int j = 0; j < K; ++j) y[j] = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float gc = g[c * T];
+#pragma unroll
+    for (int j = 0; j < K; ++j) y[j] = fmaf(q[j][c], gc, y[j]);
+  }
+#pragma unroll
   for (int j = K - 1; j >= 0; --j) {
-    float acc = 0.f;
+    float acc = y[j];
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc += q[j][c] * g[c];
-#pragma unroll
-    for (int i = j + 1; i < K; ++i) acc = acc - Rm[j][i] * y[i];
-    y[j] = acc / (Rm[j][j] + kEps);
+    for (int i = j + 1; i < K; ++i)
+      acc = fmaf(-R[i * (i + 1) / 2 + j], y[i], acc);
+    y[j] = acc / (R[j * (j + 1) / 2 + j] + kEps);
   }
   float wv[M];
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    float zy = 0.f;
-#pragma unroll
-    for (int k = 0; k < K; ++k) zy += Z[m * K + k] * y[k];
-    wv[m] = (Pbc[2 * m] * b0 + Pbc[2 * m + 1] * b1) + zy;
-  }
   float* wrow = w + (size_t)e * M;
 #pragma unroll
-  for (int m = 0; m < M; ++m) wrow[m] = wv[m];
+  for (int m = 0; m < M; ++m) {
+    const float2 pb = *reinterpret_cast<const float2*>(s + L::PBC + 2 * m);
+    wv[m] = fmaf(pb.y, b1, pb.x * b0) +
+            enh::dot_row<K>(s + L::Z + m * L::KP, y);
+    wrow[m] = wv[m];
+  }
   if (!diag) return;
 
+  // The residual reads the statics and the coefficients again: without
+  // this barrier the compiler keeps the build's loads of them (~3 K C
+  // floats) in registers across the QR, and spills.
+  asm volatile("" ::: "memory");
   float sl = 0.f;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    float er = g[c];
+    float a2, a1, a0, G[K];
+    vc_coefs<M, C>(in, c, graded, rho, a2, a1, a0);
+    vc_row_G<M, C>(s, c, a2, a1, a0, G);
+    float er = g[c * T];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float Gkc = a2[c] * AZ2[c * K + k] + a1[c] * AZ1[c * K + k] +
-                        a0[c] * AZ0[c * K + k];
-      er = er - Gkc * y[k];
-    }
+    for (int k = 0; k < K; ++k) er = fmaf(-G[k], y[k], er);
     sl = nan_max(sl, fabsf(er));
   }
-  float r0 = 0.f, r1 = 0.f;
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    r0 += Bm[m] * wv[m];
-    r1 += Bm[M + m] * wv[m];
-  }
-  float dmax = Rm[0][0], dmin = Rm[0][0];
+  const float r0 = enh::dot_row<M>(s + L::B, wv);
+  const float r1 = enh::dot_row<M>(s + L::B + L::MP, wv);
+  float dmax = R[0], dmin = R[0];
 #pragma unroll
   for (int j = 1; j < K; ++j) {
-    dmax = nan_max(dmax, Rm[j][j]);
-    dmin = nan_min(dmin, Rm[j][j]);
+    dmax = nan_max(dmax, R[j * (j + 1) / 2 + j]);
+    dmin = nan_min(dmin, R[j * (j + 1) / 2 + j]);
   }
   slack[e] = s2 * sl;
   bcv[e] = nan_max(fabsf(b0 - r0), fabsf(b1 - r1));
   cond[e] = dmax / nan_max(dmin, kEps);
+}
+
+template <int M, int C>
+__global__ void __launch_bounds__(kVcThreads)
+varcoeff_kernel(const float* __restrict__ fem, const float* __restrict__ coef,
+                const float* __restrict__ he, const float* __restrict__ statics,
+                float* __restrict__ w, float* __restrict__ slack,
+                float* __restrict__ bcv, float* __restrict__ cond, int E,
+                float h_ref, float inv_s2, float s2, int diag) {
+  using L = VcLayout<M, C>;
+  constexpr int T = kVcThreads, STAGE = L::SLOTS * T;
+  extern __shared__ __align__(16) float s[];
+  load_statics(s, statics, L::SIZE);
+  float* slots = s + L::SIZE + threadIdx.x;  // stage b: slots + b STAGE
+  const int stride = gridDim.x * T;
+  int e = blockIdx.x * T + threadIdx.x;
+  if (e < E) vc_fetch<M, C>(slots, coef, fem, he, e, E);
+  enh::cp_async_commit();
+  for (int b = 0; e < E; e += stride, b ^= 1) {
+    // The slots of the stage refilled below were last read for the element
+    // before: keep those reads above the copy.
+    asm volatile("" ::: "memory");
+    if (e < E - stride)
+      vc_fetch<M, C>(slots + (b ^ 1) * STAGE, coef, fem, he, e + stride, E);
+    enh::cp_async_commit();
+    enh::cp_async_wait<1>();  // this element's copies have landed
+    vc_element<M, C>(s, slots + b * STAGE, he != nullptr, e, h_ref, inv_s2,
+                     s2, diag != 0, w, slack, bcv, cond);
+  }
+  enh::cp_async_wait<0>();
+}
+
+// The varcoeff kernel's dynamic shared memory a block and its blocks
+// resident on the card (0 on error, with the CUDA error in *err).
+template <int M, int C>
+int vc_shape(int device, size_t* smem, cudaError_t* err) {
+  static int cache[enh::kMaxDevices] = {};
+  *smem = sizeof(float) * VcLayout<M, C>::smem_floats();
+  return enh::resident_blocks(varcoeff_kernel<M, C>, cache, device,
+                              kVcThreads, *smem, err);
+}
+
+template <int M, int C>
+cudaError_t launch_varcoeff(int device, cudaStream_t st, const float* fem,
+                            const float* coef, const float* he,
+                            const float* statics, float* w, float* slack,
+                            float* bcv, float* cond, int E, float h_ref,
+                            float inv_s2, float s2, int diag) {
+  size_t smem = 0;
+  cudaError_t err = cudaSuccess;
+  const int resident = vc_shape<M, C>(device, &smem, &err);
+  if (resident == 0) return err;
+  const int need = (int)(((long long)E + kVcThreads - 1) / kVcThreads);
+  varcoeff_kernel<M, C>
+      <<<(unsigned)(need < resident ? need : resident), kVcThreads, smem,
+         st>>>(fem, coef, he, statics, w, slack, bcv, cond, E, h_ref, inv_s2,
+               s2, diag);
+  return cudaGetLastError();
 }
 
 inline unsigned blocks_for(int E) { return (unsigned)((E + kThreads - 1) / kThreads); }
@@ -404,21 +548,36 @@ int enhance1d_varcoeff_f32(int device, void* stream, const float* fem,
                            float h_ref, float inv_s2, float s2, int diag) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (E < 1 || M < 3) return (int)cudaErrorInvalidValue;
-  const int K = M - 2;
-  const size_t smem =
-      sizeof(float) * (3 * C * K + 6 * C + M * K + 2 * M + 2 * M);
+  // (the persistent threads step e by up to a few 1e5 within int range)
+  if (E < 1 || E > INT_MAX - (1 << 24) || M < 3)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define X(m, c)                                                          \
-  if (M == m && C == c) {                                                \
-    varcoeff_kernel<m, c><<<blocks_for(E), kThreads, smem, st>>>(        \
-        fem, coef, he, statics, w, slack, bcv, cond, E, h_ref, inv_s2,   \
-        s2, diag);                                                       \
-    return (int)cudaGetLastError();                                      \
-  }
+#define X(m, c)                                                            \
+  if (M == m && C == c)                                                    \
+    return (int)launch_varcoeff<m, c>(device, st, fem, coef, he, statics,  \
+                                      w, slack, bcv, cond, E, h_ref,       \
+                                      inv_s2, s2, diag);
   ENH_SHAPES(X)
 #undef X
   return (int)cudaErrorInvalidValue;
+}
+
+// The varcoeff kernel's launch shape at (M, C): dynamic shared memory a
+// block, blocks resident on the card, threads a block.
+int enhance1d_varcoeff_launch_shape(int device, int M, int C, int* smem_bytes,
+                                    int* blocks, int* threads) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  size_t smem = 0;
+  *blocks = 0;
+#define X(m, c) \
+  if (M == m && C == c) *blocks = vc_shape<m, c>(device, &smem, &err);
+  ENH_SHAPES(X)
+#undef X
+  *smem_bytes = (int)smem;
+  *threads = kVcThreads;
+  if (*blocks > 0) return 0;
+  return err != cudaSuccess ? (int)err : (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

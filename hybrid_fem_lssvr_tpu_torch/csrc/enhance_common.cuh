@@ -30,6 +30,52 @@ __device__ __forceinline__ void load_statics(float* dst,
   __syncthreads();
 }
 
+// An index kept below N: a compile-time index that only a guarded, dead
+// branch of an unrolled loop takes past the end of its array.
+template <int N>
+__device__ __forceinline__ int lim(int i) {
+  return i < N ? i : N - 1;
+}
+
+__device__ __forceinline__ float part(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// acc + sum_k row[k] x[k], k < N in order (one fma each), from a 16-byte
+// aligned row of shared memory.
+template <int N>
+__device__ __forceinline__ float dot_row(const float* row, const float* x,
+                                         float acc = 0.f) {
+#pragma unroll
+  for (int c = 0; c < (N + 3) / 4; ++c) {
+    const float4 v = *reinterpret_cast<const float4*>(row + 4 * c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (4 * c + i < N) acc = fmaf(part(v, i), x[lim<N>(4 * c + i)], acc);
+  }
+  return acc;
+}
+
+// cp.async of one float (any alignment) or four (16-byte aligned).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;");
+}
+// Waits until at most N groups of this thread's copies are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
 // v[k] = g[k nmax] where flag[k] is set: one domain edge's Dirichlet values
 // over a quad's trace, all loaded together (one round trip to memory, not
 // one a point).

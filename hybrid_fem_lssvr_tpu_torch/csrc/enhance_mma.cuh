@@ -313,25 +313,11 @@ __device__ __forceinline__ float row_max(float v) {
   return nan_max(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-// cp.async of one float (any alignment) or four (16-byte aligned).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;");
-}
-// Waits until at most N groups of this thread's copies are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
+// The cp.async helpers live in enhance_common.cuh.
+using enh::cp_async16;
+using enh::cp_async4;
+using enh::cp_async_commit;
+using enh::cp_async_wait;
 
 // Starts the copy of rows [0, rows) of a [rows][E] global array (element
 // index fastest), columns [e0, e0 + TILE) clipped at E, into a k-major

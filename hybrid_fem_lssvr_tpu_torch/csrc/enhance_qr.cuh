@@ -1,6 +1,9 @@
 // The per-quad least-squares enhancement of the per-element 2D kernels
 // (enhance2d_graded.cu, enhance2d_varcoeff.cu method='qr'), computed by a
-// group of kLanes lanes of a warp, four quads a warp (sm_90a).
+// group of kLanes lanes of a warp, four quads a warp (sm_90a).  Its
+// shared-memory layout of the statics (Statics), the builders of G's and
+// g's rows (row_G, row_g) and of w and B w (w_entry, bw_entry) also serve
+// varcoeff2d_sne_kernel, which gives a quad one thread (quad_w).
 //
 // Per quad the kernels solve, with bc [KB = 4M-4] its boundary trace and
 // NB operator blocks AZ_b [C^2][K], AP_b [C^2][KB] (K = M^2 - KB):
@@ -142,17 +145,6 @@ __device__ __forceinline__ float group_max(float p) {
   return p;
 }
 
-// An index kept below N: a compile-time index that only a guarded, dead
-// branch of an unrolled loop takes past the end of its array.
-template <int N>
-__device__ __forceinline__ int lim(int i) {
-  return i < N ? i : N - 1;
-}
-
-__device__ __forceinline__ float part(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
 // The lane's partial sum over its R rows of Q[r][a] Q[r][b], one fma a
 // row, in order.
 template <int R, int K>
@@ -162,21 +154,6 @@ __device__ __forceinline__ float rows_dot(const float (&Q)[R][K], int a,
 #pragma unroll
   for (int r = 0; r < R; ++r) p = fmaf(Q[r][a], Q[r][b], p);
   return p;
-}
-
-// acc + sum_k row[k] x[k], k < N in order (one fma each), from a 16-byte
-// aligned row of shared memory.
-template <int N>
-__device__ __forceinline__ float dot_row(const float* row, const float* x,
-                                         float acc = 0.f) {
-#pragma unroll
-  for (int c = 0; c < (N + 3) / 4; ++c) {
-    const float4 v = *reinterpret_cast<const float4*>(row + 4 * c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (4 * c + i < N) acc = fmaf(part(v, i), x[lim<N>(4 * c + i)], acc);
-  }
-  return acc;
 }
 
 // Row q of the quad's G: G[k] = sum_b cs[b] AZ_b[q][k] (b < nb, one fma
@@ -219,6 +196,43 @@ __device__ __forceinline__ float row_g(const float* s, int q,
     dwp = fmaf(cs[b], p, dwp);
   }
   return fq - dwp;
+}
+
+// Entry m of w = Pbc bc + Z y: each product one fma a term, in order.
+template <int M, int C, int NB>
+__device__ __forceinline__ float w_entry(const float* s, int m,
+                                         const float* bc, const float* y) {
+  using S = Statics<M, C, NB>;
+  return dot_row<S::KB>(s + S::PBC + m * S::KBP, bc) +
+         dot_row<S::K>(s + S::Z + m * S::KP, y);
+}
+
+// Entry k of B w, one fma a term, in order.
+template <int M, int C, int NB>
+__device__ __forceinline__ float bw_entry(const float* s, int k,
+                                          const float* wv) {
+  using S = Statics<M, C, NB>;
+  return dot_row<S::M2>(s + S::B + k * S::M2P, wv);
+}
+
+// w [M2] of a quad that one thread holds whole (bc [KB] and y [K] in its
+// registers); returns bcv = max_k |bc_k - (B w)_k|, 0 without diag.  The
+// per-thread counterpart of the group's w and bcv in enhance_quad below,
+// with the same sums.
+template <int M, int C, int NB>
+__device__ __forceinline__ float quad_w(const float* s, const float* bc,
+                                        const float* y, float (&wv)[M * M],
+                                        bool diag) {
+  using S = Statics<M, C, NB>;
+#pragma unroll
+  for (int m = 0; m < S::M2; ++m) wv[m] = w_entry<M, C, NB>(s, m, bc, y);
+  float bv = 0.f;
+  if (diag) {
+#pragma unroll
+    for (int k = 0; k < S::KB; ++k)
+      bv = nan_max(bv, fabsf(bc[k] - bw_entry<M, C, NB>(s, k, wv)));
+  }
+  return bv;
 }
 
 // The whole enhancement of the group's quad e (see the top of the file).
@@ -337,11 +351,10 @@ __device__ __forceinline__ void enhance_quad(
   for (int t = 0; t < (M2 + kLanes - 1) / kLanes; ++t) {
     const int m = sub + kLanes * t;
     const int mc = m < M2 ? m : M2 - 1;
-    const float wp = dot_row<KB>(s + S::PBC + mc * S::KBP, bc);
-    const float zy = dot_row<K>(s + S::Z + mc * S::KP, y);
+    const float wm = w_entry<M, C, NB>(s, mc, bc, y);
     if (m < M2) {
-      if (active) wrow[m] = wp + zy;
-      sc[(S::S_W + m) * kGroups] = wp + zy;
+      if (active) wrow[m] = wm;
+      sc[(S::S_W + m) * kGroups] = wm;
     }
   }
   if (!diag) return;
@@ -356,7 +369,7 @@ __device__ __forceinline__ void enhance_quad(
   for (int t = 0; t < (KB + kLanes - 1) / kLanes; ++t) {
     const int k = sub + kLanes * t;
     const int kc = k < KB ? k : KB - 1;
-    const float bw = dot_row<M2>(s + S::B + kc * S::M2P, wv);
+    const float bw = bw_entry<M, C, NB>(s, kc, wv);
     if (k < KB) bv = nan_max(bv, fabsf(sc[(S::S_BC + k) * kGroups] - bw));
   }
   bv = group_max(bv);

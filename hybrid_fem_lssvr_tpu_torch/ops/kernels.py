@@ -33,6 +33,8 @@ from ..utils import cuda_lib
 from . import kkt, legendre
 
 MAX_FACTORS = 4  # separable rhs rank R (kMaxR in the CUDA source)
+# (M, C) compiled: ENH_SHAPES in csrc/enhance1d.cu
+SHAPES = ((4, 12), (6, 12), (8, 12), (10, 12), (12, 12), (6, 10))
 
 
 def reset_launch_counts():
@@ -294,6 +296,25 @@ def _stream(t):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def _pad_cols(x, n):
+    """x [..., k] with zero columns appended up to n."""
+    return torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+
+
+def pack_varcoeff(host):
+    """The statics of varcoeff_kernel (csrc/enhance1d.cu, ``VcLayout``), row
+    by row so that the kernel reads them as float4 broadcasts: AZ [C][3][KP]
+    (W2 Z, W1 Z, W0 Z of row c), AP [C][8] (W2 Pbc, W1 Pbc, W0 Pbc of row c,
+    two zeros), Z [M][KP], B [2][MP], Pbc [M][2]; KP and MP are K and M
+    rounded up to a multiple of 4, zeros in the padding."""
+    M, K = host.Z.shape
+    C = host.AZ.shape[1]
+    KP, MP = -(-K // 4) * 4, -(-M // 4) * 4
+    return (_pad_cols(host.AZ.permute(1, 0, 2), KP),
+            _pad_cols(host.AP.permute(1, 0, 2).reshape(C, 6), 8),
+            _pad_cols(host.Z, KP), _pad_cols(host.B, MP), host.Pbc)
+
+
 def _separable_cuda(fem_values, a, ops, with_diagnostics, with_fallback):
     name = "fused_enhance_separable"
     E = fem_values.shape[0] - 1
@@ -351,7 +372,7 @@ def _varcoeff_cuda(fem_values, coef, he, host, h, with_diagnostics):
     extra = (coef,) if he is None else (coef, he)
     lib = _load_checked(name, fem_values, M, C, *extra)
     dev = fem_values.device
-    statics = _statics(dev, host.AZ, host.AP, host.Z, host.Pbc, host.B)
+    statics = _statics(dev, *pack_varcoeff(host))
     w = torch.empty(E, M, dtype=torch.float32, device=dev)
     slack = bcv = cond = None
     if with_diagnostics:

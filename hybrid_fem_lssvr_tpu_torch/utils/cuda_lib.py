@@ -159,6 +159,8 @@ def _bind(source, lib):
             "enhance1d_shared_f32": [i, p, p, p, p, p, p, p, i, i, i, i],
             "enhance1d_varcoeff_f32": [i, p, p, p, p, p, p, p, p, p,
                                        i, i, i, f, f, f, i],
+            "enhance1d_varcoeff_launch_shape": [i] * 3
+            + [ctypes.POINTER(i)] * 3,
         }
     elif source in ("enhance2d", "enhance2d_elastic"):
         args = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, i]
@@ -173,6 +175,8 @@ def _bind(source, lib):
                                                 p, i, i, i, i, i, f, f,
                                                 i, i, i],
                      "enhance2d_varcoeff_launch_shape": [i] * 3
+                     + [ctypes.POINTER(i)] * 3,
+                     "enhance2d_varcoeff_sne_launch_shape": [i] * 3
                      + [ctypes.POINTER(i)] * 3}
     elif source == "enhance2d_graded":
         launchers = {"enhance2d_graded_f32": [i] + [p] * 11 + [i] * 5

@@ -122,6 +122,102 @@ def test_kernels_match_plain(dev, M, C, E):
                                  "fused_enhance_varcoeff": 2}
 
 
+@pytest.mark.parametrize("diag", [True, False])
+@pytest.mark.parametrize("M,C", SHAPES)
+def test_varcoeff_kernel_over_several_rounds(dev, M, C, diag):
+    """The persistent varcoeff_kernel with more elements than the card
+    holds threads at once (several rounds, a ragged last one), uniform and
+    graded, with and without diagnostics."""
+    E = 300001
+    fem, _, host, h, graded = inputs(E, M, C, dev)
+    vc = problems.variable_coeff_elliptic()
+    for args, kw, w_tol in (
+            ((fem, vc, host, -1.0, h, C), dict(f_shifted_fn=vc.f_shifted),
+             VC_TOL),
+            ((torch.sin(torch.pi * graded), vc, host, -1.0, h, C),
+             dict(nodes=graded), GRADED_TOL)):
+        kw = dict(kw, with_diagnostics=diag)
+        got = K.fused_enhance_varcoeff(*args, **kw)
+        want = K.fused_enhance_varcoeff_ref(*args, **kw)
+        torch.cuda.synchronize()
+        assert got[0].shape == (E, M)
+        if diag:
+            assert_close(got, want, (w_tol, None, BCV_TOL, None))
+            torch.testing.assert_close(got[3], want[3], rtol=1e-3, atol=0)
+            ratio = float(got[1].max()) / float(want[1].max())
+            assert 0.2 < ratio < 5.0, ratio
+        else:
+            assert got[1:] == (None, None, None)
+            assert_close(got, want, (w_tol,))
+
+
+def test_varcoeff_kernels_nan_coefficient(dev):
+    """A NaN coefficient makes the diagnostics of its elements NaN, in the
+    1D kernel and both 2D methods as in their plain versions, and leaves
+    every other element as the plain version has it."""
+    E, M, C = 1000, 8, 12
+    fem, _, host, h, _ = inputs(E, M, C, dev)
+    base = problems.variable_coeff_elliptic()
+    nan = float("nan")
+    vc = dataclasses.replace(base, a=lambda x: torch.where(
+        (x > 0.1) & (x < 0.12), nan, base.a(x)))
+    args = (fem, vc, host, -1.0, h, C)
+    got = K.fused_enhance_varcoeff(*args)
+    want = K.fused_enhance_varcoeff_ref(*args)
+    torch.cuda.synchronize()
+    bad = torch.isnan(want[1])
+    assert 0 < int(bad.sum()) < E
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+    torch.testing.assert_close(got[0][~bad], want[0][~bad], rtol=0,
+                               atol=VC_TOL)
+    nx = ny = 16
+    p, ops, fem2, geom, t_int, bpts = inputs_2d(
+        "variable_coeff_elliptic_2d", nx, ny, 6, 6, dev)
+
+    def a_nan(x, y):
+        box = (x > 0.1) & (x < 0.2) & (y > 0.1) & (y < 0.2)
+        return torch.where(box, nan, p.a_var(x, y))
+
+    args = (fem2, ops, a_nan, p.grad_a, p.f, p.g, geom, nx, ny, t_int, bpts)
+    for method in K2.METHODS:
+        kw = dict(s2=2.0 * nx * nx, method=method)
+        got = K2.fused_enhance_varcoeff_2d(*args, **kw)
+        want = K2.fused_enhance_varcoeff_2d_ref(*args, **kw)
+        torch.cuda.synchronize()
+        bad = torch.isnan(want[1])
+        assert 0 < int(bad.sum()) < nx * ny
+        for g, w in zip(got[1:], want[1:]):
+            assert torch.equal(torch.isnan(g), torch.isnan(w))
+        torch.testing.assert_close(got[0][~bad], want[0][~bad], rtol=0,
+                                   atol=3e-5)
+
+
+def test_varcoeff_launch_shapes(dev):
+    """The persistent kernels' launch shapes as their sources report them:
+    shared memory a block, resident blocks, threads a block."""
+    import ctypes
+
+    from hybrid_fem_lssvr_tpu_torch.utils import cuda_lib
+
+    for source, fn, shapes, threads in (
+            ("enhance1d", "enhance1d_varcoeff_launch_shape", SHAPES, 128),
+            ("enhance2d_varcoeff", "enhance2d_varcoeff_sne_launch_shape",
+             K2.SHAPES, 256),
+            ("enhance2d_varcoeff", "enhance2d_varcoeff_launch_shape",
+             K2.SHAPES, 128)):
+        query = getattr(cuda_lib.load(source), fn)
+        for M, C in shapes:
+            out = [ctypes.c_int(0) for _ in range(3)]
+            assert query(dev.index or 0, M, C,
+                         *(ctypes.byref(v) for v in out)) == 0
+            smem, blocks, nthreads = (v.value for v in out)
+            assert smem > 0 and blocks > 0 and nthreads == threads
+        out = [ctypes.c_int(0) for _ in range(3)]
+        assert query(dev.index or 0, 7, 3,
+                     *(ctypes.byref(v) for v in out)) != 0
+
+
 def test_nan_gate_and_fallback(dev):
     E = 1000
     fem, ops, _, h, _ = inputs(E, 8, 12, dev)
@@ -272,7 +368,7 @@ def test_shared_2d_kernels_match_plain(dev, M, C, nx, ny, diag):
 @pytest.mark.parametrize("diag", [True, False])
 @pytest.mark.parametrize("method", K2.METHODS)
 @pytest.mark.parametrize("nx,ny", [(1, 1), (5, 3), (64, 48), (131, 67),
-                                   (257, 131)])
+                                   (257, 131), (300, 257)])
 @pytest.mark.parametrize("M,C", K2.SHAPES)
 def test_varcoeff_2d_kernel_matches_plain(dev, M, C, nx, ny, method, diag):
     p, ops, fem, geom, t_int, bpts = inputs_2d("variable_coeff_elliptic_2d",

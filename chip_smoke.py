@@ -1,17 +1,29 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--gate-basis]
+    python3 chip_smoke.py --identity OLD_TREE
 
-``--gate-basis`` also solves each 2D, graded 2D, 3D and 2D elasticity
-configuration through the plain torch route on the card and prints its
-Linf: the numbers their gates are set from.
+``--gate-basis`` also solves each 2D, graded 2D, 3D, 2D elasticity,
+family and goal-oriented 2D configuration through the plain torch route on
+the card and prints its Linf: the numbers their gates are set from.
+
+``--identity OLD_TREE`` runs only the 1D varcoeff kernel of two checkouts
+(OLD_TREE's and this one's, each built from its own sources in a process
+of its own) on each tree's own main-path inputs (``kernel_inputs``: 2^20
+elements, M = 8, C = 12, seed 0): uniform mode with ``f_shifted`` and
+graded mode, each with and without diagnostics.  It compares the outputs
+bit for bit (``torch.equal``, through ~300 MB in a temporary directory),
+takes the kernel's device time in the order old, new, new, old, prints
+one JSON line and exits non-zero if any output differs.
 
 Builds the hand-written kernels of ``hybrid_fem_lssvr_tpu_torch/csrc`` with
 nvcc (one process per source, in parallel), holds each kernel against its
 plain PyTorch version at the main paths' shapes (1D: E = 2^20 elements,
 M = 8, 12 collocation points; 2D: 1024 x 1024 quads, M = 6, 6 x 6
 collocation points, on a uniform and on a power-law graded mesh; 3D: 128^3
-hexes, M = 4, 4^3 collocation points), then drives the 1D solver through
+hexes, M = 4, 4^3 collocation points; the 1D kernel also in its family
+layout, 128 families of 8,191 elements in one launch, with a seam check
+and the 128 single launches it replaces), then drives the 1D solver through
 ``HybridSolver`` at 2^20 elements and at the reference's 25-node
 configuration, the 2D solvers through ``HybridSolver2D`` and
 ``HybridSolver2DGraded`` at 1024 x 1024 quads and the 3D solver through
@@ -19,6 +31,12 @@ configuration, the 2D solvers through ``HybridSolver2D`` and
 ``ElasticSolver2D`` at 1024 x 1024 quads (M = 6) and 3D elasticity through
 ``ElasticSolver3D`` at 64^3 hexes, checks the errors against gates and
 shows through the kernels' launch counters that the solves ran on them.
+Then ``solve_family`` and ``solve_groups`` (one launch a family),
+``adaptive_solve`` and ``goal_adaptive_solve`` from 2^16 + 1 nodes (one
+graded-mode launch a solve), ``HybridSolver3DGraded`` at 64^3, the 3D
+adaptive and goal loops and the 2D goal loop (through graded2d_kernel),
+where the family solve spends its time, and the semilinear solves (1D at
+2^20 elements, 2D at 256^2, 3D at 32^3).
 
 Each phase prints one JSON line.  The last lines are the kernel summary,
 the card's name and power limit as nvidia-smi reports them, and
@@ -222,21 +240,22 @@ class IncompleteProfile(RuntimeError):
     """Every profile of a call lost a device record (device_ms)."""
 
 
-def device_ms(fn, kernel=None, reps=REPS):
+def device_ms(fn, kernel=None, reps=REPS, launches=1):
     """(busy, kernel) device milliseconds per fn() call, averaged over
     ``reps`` calls under torch.profiler: busy is the union of the intervals
     in which fn's kernels and copies ran on the card (host launch overhead
-    excluded); kernel is the time of the CUDA kernel named ``kernel`` alone
-    (None without a name).  Each profile runs fn once before the timed
-    calls and once after them, a host pause of PROFILE_PAUSE_S apart; the
+    excluded); kernel is the time of the CUDA kernel named ``kernel`` alone,
+    summed over its ``launches`` launches a call (None without a name).
+    Each profile runs fn once before the timed calls and once after them, a
+    host pause of PROFILE_PAUSE_S apart; the
     timed calls are the host calls that put work on the card (LAUNCH_CALL)
     inside their host span, and their device records are those with the
     same correlation ids (a window in time held too few records in every
     profile of one long call).  The tracer now and then drops a device
     record, so a profile is complete when every timed host call has its
-    record and the named kernel was seen once a call (a library may pick
-    another kernel from one call to the next, as cuBLAS does); an
-    incomplete one is reported on stderr and taken again, and after
+    record and the named kernel was seen ``launches`` times a call (a
+    library may pick another kernel from one call to the next, as cuBLAS
+    does); an incomplete one is reported on stderr and taken again, and after
     PROFILE_TRIES incomplete profiles the run fails."""
     import collections
 
@@ -273,15 +292,20 @@ def device_ms(fn, kernel=None, reps=REPS):
         missing = collections.Counter(
             calls.values()) - collections.Counter(calls[e.id] for e in timed)
         if (calls and not missing
-                and (kernel is None or len(own) == reps)):
+                and (kernel is None or len(own) == reps * launches)):
             kernel_ms = (None if kernel is None else
                          sum(e.time_range.elapsed_us() for e in own) / 1e3
                          / reps)
             return busy_ms(timed) / reps, kernel_ms
+        recorded = {e.id for e in timed}
+        lost = [(e.name, e.thread, getattr(e.cpu_parent, "name", None))
+                for e in events if e.device_type != cuda and e.id in calls
+                and e.id not in recorded][:8]
         print(f"device_ms: profile {attempt} of {kernel or 'a call'} "
               f"incomplete: {len(timed)} device records for {len(calls)} "
               f"launch calls, {len(own)} of {kernel}; calls without a "
-              f"record: {dict(missing)}", file=sys.stderr, flush=True)
+              f"record: {dict(missing)}; (call, thread, op): {lost}",
+              file=sys.stderr, flush=True)
     raise IncompleteProfile(f"device_ms: {PROFILE_TRIES} incomplete "
                             f"profiles of {kernel or 'a call'} in {reps} "
                             f"calls")
@@ -2017,6 +2041,752 @@ def phase_stages_elastic(device="cuda"):
                                      backend="cuda"),
                    points_2d(), EL.SPANS, "enhance_elastic", nx=NE, ny=NE)
 
+# ------------------------------------------------- families, adaptivity,
+# graded 3D and semilinear solves
+
+# The family layout of fused_enhance_varcoeff: P = 128 families of 8,191
+# elements (1,048,448 in all, 128 fewer than E_MAIN), M = 8, C = 12.  The
+# family main path: the helmholtz family at 128 values of k spread evenly
+# over [0.5, 3] and the advection-diffusion family at 64 pairs (eps in
+# [0.5, 2], beta in [0, 3]), num_nodes 8192 (the largest mesh tridiag
+# 'auto' solves by Thomas), float32 enhancement over a float64 coarse
+# stage.
+P_FAM, EF_FAM = 128, 8191
+REPS_SINGLES = 5  # timed calls of the 128-launch loop
+# adaptive_solve on tests/test_adaptive.py's atan layer from 2^16 + 1 nodes
+# (four rounds, refine_frac 0.3); goal_adaptive_solve on poisson_1d with
+# tests/test_goal.py's Gaussian weight (three rounds), same start.
+# The 2D and 3D goal loops hold each round's DWR estimate to the true goal
+# error within tests/test_goal.py's 0.35 of it (its first two rounds, as
+# there), and the error falls each round.
+GOAL_TRACK = 0.35
+N_ADAPT = (1 << 16) + 1
+# Graded 3D: HybridSolver3DGraded at 64^3 on the power-law mesh (D is
+# [E, C^3, M^3], 16 KB an element in float32: 4.3 GB at 64^3, 34 GB at
+# 128^3 before the solve's workspace), variable coefficients at 32^3 on the
+# autograd path, adaptive_solve_3d from 16^3, goal_adaptive_solve_3d from
+# 8^3 and goal_adaptive_solve_2d from 64^2, two rounds each.
+NG3D = 64
+NG3D_VAR = 32
+GRADED3D_CG_MAXITER = 20000
+# Semilinear (the JAX package's semilinear solvers have one dtype): 1D in
+# float64 (a float32 coarse Newton at 2^20 elements would be the float32
+# coarse solve's 0.98 Linf, bench.py:105-109); 2D and 3D in float32, whose
+# element Newton takes the gamma-free null-space QR (in float64 the
+# per-element Cholesky of I + gamma D^T D loses positive definiteness from
+# 128^2 on, in the JAX package's algebra as in the port's).
+E_NONLIN = 1 << 20
+N2D_NONLIN = 256
+N3D_NONLIN = 32
+# Linf gates of the new paths, 10x the torch route's Linf on an H100
+# (--gate-basis; NVIDIA H100 80GB HBM3, 700.00 W: helmholtz family
+# 1.609e-6, advdiff family 1.311e-6, atan layer 1.669e-6, goal poisson
+# 9.537e-7, goal 2D 7.761e-4); the graded 3D and semilinear paths run on
+# the torch route only, so 10x their own Linf there (poisson_3d graded
+# 1.935e-3, variable coefficients 7.99e-3, adaptive 3D 6.13e-3; 1D
+# semilinear 1.81e-11, 3.15e-11, 2.23e-11, 4.32e-11; cubic_2d 1.382e-4;
+# cubic_3d 1.444e-2).  The 3D goal loop refines from 8^3 toward the goal's
+# support only, so its gate is on what it controls, the goal error
+# |J(u) - J(u_h)| of its last round: 10x the card's 1.0696e-4.
+GATES_NEW = {
+    "helmholtz_family": 1.6e-5,
+    "advdiff_family": 1.3e-5,
+    "atan_layer": 1.7e-5,
+    "goal_poisson_1d": 9.5e-6,
+    "poisson_3d_graded": 1.9e-2,
+    "variable_coeff_elliptic_3d_graded": 8e-2,
+    "adaptive_3d": 6.1e-2,
+    "goal_3d": 1.1e-3,
+    "goal_2d": 7.8e-3,
+    "cubic_1d/p1": 1.8e-10,
+    "cubic_1d/numerov": 3.1e-10,
+    "bratu_1d/p1": 2.2e-10,
+    "bratu_1d/numerov": 4.3e-10,
+    "cubic_2d": 1.4e-3,
+    "cubic_3d": 0.14,
+}
+# The semilinear solves' final nonlinear collocation residual, 10x the
+# card's (3.0e-14 in 1D; 0.730 and 11.52 in 2D and 3D, where it is the
+# least-squares floor of the fit, scaling with (2/h)^2, not a convergence
+# certificate).
+COLLOC_GATES = {"1d": 3e-13, "cubic_2d": 7.3, "cubic_3d": 115.0}
+# The last coarse Newton residual against the first: 10x the card's
+# largest ratio (3.0e-4, cubic_2d in float32), the rows' rounding over
+# the data.
+NEWTON_REL = 3e-3
+
+
+def family_kernel_inputs(device, seam=False):
+    """Main-path-shaped family inputs (seed 0): each family's nodal values
+    of sin(pi x) plus noise (with ``seam``: plus a jump of +-1e3 p between
+    families), the uniform nodes [P, Ef+1] solve_family hands the kernel,
+    the helmholtz family at k in [0.5, 3] as one batched problem, and the
+    statics at h = 2 / Ef."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch.models import batched as B
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels as K
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.linspace(-1.0, 1.0, EF_FAM + 1, dtype=torch.float64)
+    fem = torch.sin(torch.pi * x)[None] + 1e-3 * torch.randn(
+        P_FAM, EF_FAM + 1, generator=g, dtype=torch.float64)
+    fem[:, 0] = fem[:, -1] = 0.0
+    if seam:
+        p = torch.arange(P_FAM, dtype=torch.float64)[:, None]
+        fem = fem + 1e3 * p * (1.0 - 2.0 * (p % 2))
+    fem = fem.to(device=device, dtype=torch.float32).contiguous()
+    nodes = torch.linspace(-1.0, 1.0, EF_FAM + 1, dtype=torch.float32,
+                           device=device).expand(P_FAM, EF_FAM + 1)
+    ks = torch.linspace(0.5, 3.0, P_FAM, dtype=torch.float32, device=device)
+    h = 2.0 / EF_FAM
+    host = K.VarCoeffOperators.host(M, C, h).to(device)
+    return fem, nodes, ks, B.batched_problem(B.helmholtz_family(), ks), \
+        host, h
+
+
+def phase_kernels_family(device="cuda"):
+    """fused_enhance_varcoeff in its family layout (P_FAM x EF_FAM, one
+    launch) against the plain version in the same layout: w, cond, the
+    diagnostics, the rhs part alone on zero nodal values, and the seam
+    check (nodal values jumping by up to 1.3e5 between families: an element
+    that read across a family boundary would be off by ~1e3).  Times the
+    family launch, its wrapper, and the route it replaces: the 128 P = 1
+    launches of EF_FAM elements, one a family."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch.models import batched as B
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels as K
+
+    name, kname = "fused_enhance_varcoeff", "varcoeff_kernel"
+    E = P_FAM * EF_FAM
+    tag = f"{name}/family {P_FAM}x{EF_FAM}"
+    fem, nodes, ks, prob, host, h = family_kernel_inputs(device)
+    args = (prob, host, -1.0, h, C)
+    kern = functools.partial(K.fused_enhance_varcoeff, fem, *args,
+                             nodes=nodes)
+    plain = functools.partial(K.fused_enhance_varcoeff_ref, fem, *args,
+                              nodes=nodes)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    check(got[0].shape == (E, M), f"{tag}: w shape {got[0].shape}")
+    check(bool(torch.isfinite(got[0]).all()), f"{tag}: non-finite w")
+    err = max_err(got[0], want[0])
+    check(err <= VC_TOL, f"{tag}: w max abs err {err} > {VC_TOL}")
+    bcv_err = max_err(got[2], want[2])
+    check(bcv_err <= BCV_TOL, f"{tag}: bcv max abs err {bcv_err}")
+    rel = float(((got[3] - want[3]).abs() / want[3]).max())
+    check(rel <= 1e-3, f"{tag}: cond rel err {rel}")
+    ratio = float(got[1].max()) / float(want[1].max())
+    check(0.2 < ratio < 5.0, f"{tag}: slack ratio {ratio}")
+    rec = dict(max_abs_err=err, bcv_max_abs_err=bcv_err, cond_rel_err=rel,
+               slack_ratio=ratio)
+    for what, i, rel_ in (("slack", 1, SLACK_REL[kname]),
+                          ("bcv", 2, BCV_REL)):
+        rec.update(check_diagnostic(tag, what, got[i], want[i], rel_))
+    del got, want
+    zero = torch.zeros_like(fem)
+    w_rhs = K.fused_enhance_varcoeff(zero, *args, nodes=nodes)[0]
+    w_rhs_plain = K.fused_enhance_varcoeff_ref(zero, *args, nodes=nodes)[0]
+    rec["rhs_size"] = float(w_rhs_plain.abs().max())
+    check(rec["rhs_size"] > 0, f"{tag}: the plain version's rhs part is 0")
+    rec["rhs_rel_err"] = max_err(w_rhs, w_rhs_plain) / rec["rhs_size"]
+    check(rec["rhs_rel_err"] <= RHS_REL_TOL, f"{tag}: rhs part of w differs "
+          f"from the plain version by {rec['rhs_rel_err']} of its size")
+    del w_rhs, w_rhs_plain, zero
+    # The seam check, and each family of the seam case against its own
+    # P = 1 launch (the same element arithmetic: bit for bit).
+    sfem = family_kernel_inputs(device, seam=True)[0]
+    scale = float(sfem.abs().max())
+    sgot = K.fused_enhance_varcoeff(sfem, *args, nodes=nodes)
+    swant = K.fused_enhance_varcoeff_ref(sfem, *args, nodes=nodes)
+    rec["seam_scale"] = scale
+    rec["seam_w_rel_err"] = max_err(sgot[0], swant[0]) / scale
+    rec["seam_bcv_rel_err"] = max_err(sgot[2], swant[2]) / scale
+    check(rec["seam_w_rel_err"] <= VC_TOL and rec["seam_bcv_rel_err"] <=
+          BCV_TOL, f"{tag}: seam case differs from the plain version: "
+          f"w {rec['seam_w_rel_err']}, bcv {rec['seam_bcv_rel_err']} of "
+          f"{scale}")
+    coef, he = K._sample_varcoeff(sfem, prob, -1.0, h, C, None, nodes)
+    for p in (0, 1, P_FAM // 2, P_FAM - 1):
+        rows = slice(p * EF_FAM, (p + 1) * EF_FAM)
+        one = K._varcoeff_cuda(sfem[p].contiguous(),
+                               coef[:, :, rows].contiguous(),
+                               he[rows].contiguous(), host, h, True)
+        check(all(torch.equal(g[rows], o) for g, o in zip(sgot, one)),
+              f"{tag}: family {p} differs from its own P = 1 launch")
+    del sgot, swant, coef, he, sfem
+    # Times: the family launch, its plain version, and the route the
+    # batching avoids, 128 P = 1 launches (each family's own problem).
+    ms, kernel_ms = device_ms(kern, kname)
+    plain_ms, _ = device_ms(plain)
+    members = [(fem[p].contiguous(), B.helmholtz_family().instantiate(
+        float(ks[p])), nodes[p].contiguous()) for p in range(P_FAM)]
+
+    def singles():
+        for f_p, prob_p, n_p in members:
+            K.fused_enhance_varcoeff(f_p, prob_p, host, -1.0, h, C,
+                                     nodes=n_p)
+
+    one_ms, one_kernel_ms = device_ms(functools.partial(
+        K.fused_enhance_varcoeff, *members[0][:2], host, -1.0, h, C,
+        nodes=members[0][2]), kname)
+    singles_busy_ms, singles_kernel_ms = device_ms(
+        singles, kname, reps=REPS_SINGLES, launches=P_FAM)
+    nbytes, flops = work_1d(name, E)
+    bounds = bound(nbytes + 4 * (P_FAM - 1), flops)  # P nodal rows of Ef+1
+    rec.update(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+               wall_ms=cuda_ms(kern), plain_wall_ms=cuda_ms(plain),
+               single_kernel_ms=one_kernel_ms, single_ms=one_ms,
+               singles_kernel_ms=singles_kernel_ms,
+               singles_busy_ms=singles_busy_ms,
+               singles_wall_ms=cuda_ms(singles, reps=REPS_SINGLES), **bounds)
+    emit("kernel", name=name, variant=f"family {P_FAM}x{EF_FAM}", E=E, P=P_FAM,
+         Ef=EF_FAM, M=M, C=C, **rec)
+    return dict(family_kernel_ms=kernel_ms, family_ms=ms,
+                singles_kernel_ms=singles_kernel_ms,
+                singles_busy_ms=singles_busy_ms)
+
+
+def family_linf(sol, points):
+    """Linf of every member of a family solution against sin(pi x) at
+    ``points`` (the members share their nodes)."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch.ops import eval as ops_eval
+    from hybrid_fem_lssvr_tpu_torch.ops import legendre
+
+    nodes = sol.nodes[0]
+    x = points.to(device=nodes.device, dtype=nodes.dtype)
+    e = ops_eval.locate_elements(nodes, x)
+    t = (2.0 * x - nodes[e] - nodes[e + 1]) / (nodes[e + 1] - nodes[e])
+    (V,) = legendre.legendre_vandermonde(t, sol.coeffs.shape[-1],
+                                         num_derivs=0)
+    exact = torch.sin(torch.pi * x)
+    return torch.stack([(torch.einsum("xm,xm->x", sol.coeffs[p, e], V)
+                         - exact).abs().max()
+                        for p in range(sol.coeffs.shape[0])])
+
+
+def family_runs():
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch import SolverConfig
+    from hybrid_fem_lssvr_tpu_torch.models import batched as B
+
+    cfg = SolverConfig(num_nodes=EF_FAM + 1, M=M, gamma=1e4, n_colloc=C,
+                       dtype="float32", fem_dtype="float64")
+    ks = torch.linspace(0.5, 3.0, P_FAM, dtype=torch.float64)
+    eps, beta = torch.meshgrid(torch.linspace(0.5, 2.0, 8,
+                                              dtype=torch.float64),
+                               torch.linspace(0.0, 3.0, 8,
+                                              dtype=torch.float64),
+                               indexing="ij")
+    pairs = torch.stack([eps.reshape(-1), beta.reshape(-1)], 1)
+    return [("helmholtz_family", B.helmholtz_family(), cfg, ks),
+            ("advdiff_family", B.advdiff_family(), cfg, pairs)]
+
+
+def phase_main_path_families(device="cuda", gate_basis=False):
+    """solve_family on the helmholtz family (128 values of k) and the
+    advection-diffusion family (64 pairs), then solve_groups of both: one
+    launch of fused_enhance_varcoeff a family, one a group; every member
+    held to sin(pi x) on the dense grid.  Returns the launch counts."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch import solve_family, solve_groups
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels as K
+
+    name = "fused_enhance_varcoeff"
+    dense = torch.linspace(-1.0, 1.0, DENSE_POINTS // 4 + 1,
+                           dtype=torch.float32)
+    runs = family_runs()
+    K.reset_launch_counts()
+    for label, family, cfg, thetas in runs:
+        before = K.launch_counts()[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = solve_family(family, cfg, thetas, device=device)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        launched = K.launch_counts()[name] - before
+        check(launched == 1, f"{label}: {launched} launches of {name}")
+        P = thetas.shape[0]
+        check(tuple(sol.coeffs.shape) == (P, EF_FAM, M),
+              f"{label}: coeffs shape {tuple(sol.coeffs.shape)}")
+        check(bool(sol.solve_ok.all()), f"{label}: "
+              f"{int((~sol.solve_ok).sum())} elements fell back")
+        linf = family_linf(sol, dense)
+        worst = int(linf.argmax())
+        check(bool(torch.isfinite(linf).all())
+              and float(linf.max()) < GATES_NEW[label], f"{label}: Linf "
+              f"{float(linf.max())} (member {worst}) >= gate "
+              f"{GATES_NEW[label]}")
+        emit("main_path_families", run=label, P=P, E=EF_FAM, M=M, C=C,
+             solve_s=solve_s, launched=launched,
+             linf_max=float(linf.max()), linf_worst_member=worst,
+             linf_median=float(linf.median()), gate=GATES_NEW[label])
+        if gate_basis:
+            tsol = solve_family(family, dataclasses.replace(
+                cfg, backend="torch"), thetas, device=device)
+            emit("gate_basis_families", run=label, route="torch",
+                 linf_max=float(family_linf(tsol, dense).max()))
+            del tsol
+        del sol
+        torch.cuda.empty_cache()
+    before = K.launch_counts()[name]
+    out = solve_groups([(family, cfg, thetas)
+                        for _, family, cfg, thetas in runs], device=device)
+    launched = K.launch_counts()[name] - before
+    check(launched == 2, f"solve_groups: {launched} launches of {name}")
+    for (label, *_), group in zip(runs, out):
+        check(group.family_name == label, f"group {group.family_name}")
+        check(bool(group.solution.solve_ok.all()), f"group {label} fell back")
+        linf = float(family_linf(group.solution, dense).max())
+        check(linf < GATES_NEW[label], f"group {label}: Linf {linf}")
+    emit("main_path_families", run="solve_groups", launched=launched)
+    counts = K.launch_counts()
+    emit("launch_counts_families", **counts)
+    return {name: counts[name]}
+
+
+def phase_stages_families(device="cuda"):
+    """Where the helmholtz family solve (128 x 8,191 elements) spends its
+    time: host clock, then torch.profiler through the spans of
+    ``models/batched.py`` (the batched float64 Thomas, the assembly, the
+    enhancement): each span's host and device time, the device-busy time
+    and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hybrid_fem_lssvr_tpu_torch import solve_family
+    from hybrid_fem_lssvr_tpu_torch.models import batched as B
+
+    label, family, cfg, thetas = family_runs()[0]
+
+    def run():
+        sol = solve_family(family, cfg, thetas, device=device)
+        return float(sol.coeffs.abs().max())  # synchronises
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    spans = {n: dict(host_ms=0.0, device_ms=0.0) for n in B.SPANS}
+    launches = 0
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            launches += e.name not in spans
+        elif e.name in spans:
+            spans[e.name]["host_ms"] += e.time_range.elapsed_us() / 1e3
+            spans[e.name]["device_ms"] += e.device_time_total / 1e3
+    for n, rec in spans.items():
+        check(rec["host_ms"] > 0, f"span {n} not seen by the profiler")
+    busy = busy_ms(events, skip=B.SPANS)
+    emit("stages_families", run=label, P=P_FAM, E=EF_FAM, wall_ms=wall_ms,
+         profiled_wall_ms=profiled_ms, device_busy_ms=busy,
+         device_idle_share=1.0 - busy / wall_ms, device_ops=launches,
+         spans=spans)
+
+
+def layer_problem():
+    """tests/test_adaptive.py's atan layer (alpha = 40, x0 = 0.2) in torch:
+    -u'' = f, u = atan(alpha (x - x0))."""
+    import math
+
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch import Problem1D
+
+    alpha, x0 = 40.0, 0.2
+
+    def f(x):
+        s = x - x0
+        return 2.0 * alpha**3 * s / (1.0 + alpha**2 * s**2) ** 2
+
+    return Problem1D(name="atan_layer", f=f,
+                     g_left=math.atan(alpha * (-1.0 - x0)),
+                     g_right=math.atan(alpha * (1.0 - x0)),
+                     exact=lambda x: torch.atan(alpha * (x - x0)),
+                     constant_coeffs=True)
+
+
+def goal_weight(x):
+    """tests/test_goal.py's Gaussian goal weight."""
+    import torch
+
+    return torch.exp(-0.5 * ((x - 0.3) / 0.15) ** 2)
+
+
+def phase_main_path_adaptive(device="cuda"):
+    """adaptive_solve on the atan layer from 2^16 + 1 nodes (four rounds)
+    and goal_adaptive_solve on poisson_1d (three rounds), float32 through
+    the graded mode of fused_enhance_varcoeff: one launch a solve; the
+    final Linf within its gate.  Each history's element counts equal the
+    torch route's: refine_nodes bisects ceil(frac E) elements whatever the
+    indicator, so that checks the loop's bookkeeping, not that the routes
+    agree (their slack rounds differently, so they may bisect different
+    elements; their nodes are not compared).  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch import (SolverConfig, adaptive_solve,
+                                            goal_adaptive_solve, problems)
+    from hybrid_fem_lssvr_tpu_torch.ops import eval as ops_eval
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels as K
+
+    name = "fused_enhance_varcoeff"
+    cfg = SolverConfig(num_nodes=N_ADAPT, M=M, gamma=1e4, n_colloc=C,
+                       dtype="float32", fem_dtype="float64")
+    dense = torch.linspace(-1.0, 1.0, DENSE_POINTS, dtype=torch.float32)
+    K.reset_launch_counts()
+    runs = {}
+    for backend in ("cuda", "torch"):
+        c = dataclasses.replace(cfg, backend=backend)
+        before = K.launch_counts()[name]
+        t0 = time.perf_counter()
+        res = adaptive_solve(layer_problem(), c, rounds=4, refine_frac=0.3,
+                             eval_points=dense, device=device)
+        solve_s = time.perf_counter() - t0
+        runs[backend] = res
+        launched = K.launch_counts()[name] - before
+        want = len(res.history) if backend == "cuda" else 0
+        check(launched == want, f"adaptive_solve ({backend}): {launched} "
+              f"launches, expected {want}")
+        check(bool(res.solution.solve_ok.all()),
+              f"adaptive_solve ({backend}): elements fell back")
+        emit("main_path_adaptive", run="atan_layer", route=backend,
+             solve_s=solve_s, launched=launched, history=res.history)
+    elements = [[r["elements"] for r in runs[b].history] for b in runs]
+    check(elements[0] == elements[1], f"adaptive_solve: elements {elements}")
+    linf = runs["cuda"].history[-1]["linf"]
+    check(linf < GATES_NEW["atan_layer"], f"atan_layer: Linf {linf} >= "
+          f"gate {GATES_NEW['atan_layer']}")
+    emit("main_path_adaptive", run="atan_layer", linf=linf,
+         torch_route_linf=runs["torch"].history[-1]["linf"],
+         gate=GATES_NEW["atan_layer"])
+    tq, wq = np.polynomial.legendre.leggauss(400)
+    exact_goal = float(np.sum(wq * np.sin(np.pi * tq)
+                              * np.exp(-0.5 * ((tq - 0.3) / 0.15) ** 2)))
+    goal = {}
+    for backend in ("cuda", "torch"):
+        c = dataclasses.replace(cfg, backend=backend)
+        before = K.launch_counts()[name]
+        t0 = time.perf_counter()
+        res = goal_adaptive_solve(problems.poisson_1d(), goal_weight, c,
+                                  rounds=3, refine_frac=0.3,
+                                  exact_goal=exact_goal, device=device)
+        solve_s = time.perf_counter() - t0
+        goal[backend] = res
+        launched = K.launch_counts()[name] - before
+        want = 2 * len(res.history) if backend == "cuda" else 0
+        check(launched == want, f"goal_adaptive_solve ({backend}): "
+              f"{launched} launches, expected {want} (primal and adjoint)")
+        sol = res.solution
+        u = ops_eval.evaluate(sol.nodes, sol.coeffs,
+                              dense.to(sol.nodes.device))
+        linf = float((u - torch.sin(torch.pi * dense.to(u.device)))
+                     .abs().max())
+        check(bool(sol.solve_ok.all()) and bool(res.adjoint.solve_ok.all()),
+              f"goal_adaptive_solve ({backend}): elements fell back")
+        emit("main_path_adaptive", run="goal_poisson_1d", route=backend,
+             solve_s=solve_s, launched=launched, linf=linf,
+             history=res.history)
+        if backend == "cuda":
+            check(linf < GATES_NEW["goal_poisson_1d"], f"goal_poisson_1d: "
+                  f"Linf {linf} >= gate {GATES_NEW['goal_poisson_1d']}")
+    elements = [[r["elements"] for r in goal[b].history] for b in goal]
+    check(elements[0] == elements[1], f"goal_adaptive_solve: {elements}")
+    counts = K.launch_counts()
+    emit("launch_counts_adaptive", **counts)
+    return {name: counts[name]}
+
+
+def graded_3d_solve(name, n, device, **kw):
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch import (HybridSolver3DGraded,
+                                            Solver3DConfig, get_problem_3d)
+
+    problem = get_problem_3d(name)
+    if name == "variable_coeff_elliptic_3d":
+        problem = dataclasses.replace(problem, grad_a=None)  # autograd
+    nodes = graded_axis_nodes(n, -1.0, 1.0, GRADED_POWER)
+    cfg = Solver3DConfig(**dict(dict(nx=n, ny=n, nz=n, M=M3D, n_colloc=C3D,
+                                     dtype="float32", fem_dtype="float64",
+                                     precond="jacobi",
+                                     cg_maxiter=GRADED3D_CG_MAXITER), **kw))
+    t0 = time.perf_counter()
+    s = HybridSolver3DGraded(problem, cfg, nodes, nodes, nodes,
+                             device=device)
+    sol = s.solve()
+    torch.cuda.synchronize()
+    return s, sol, time.perf_counter() - t0
+
+
+def goal_weight_2d(x, y):
+    import torch
+
+    return torch.exp(-0.5 * (((x - 0.55) / 0.08) ** 2
+                             + ((y - 0.55) / 0.08) ** 2))
+
+
+def goal_weight_3d(x, y, z):
+    import torch
+
+    return torch.exp(-0.5 * (((x - 0.45) ** 2 + (y - 0.45) ** 2
+                              + (z - 0.45) ** 2) / 0.15 ** 2))
+
+
+def exact_goal(weight, exact, dim, n):
+    """J(u) = integral of weight * exact over (-1, 1)^dim, Gauss-Legendre
+    with n points an axis, in float64 on the host."""
+    import numpy as np
+    import torch
+
+    tq, wq = np.polynomial.legendre.leggauss(n)
+    X = np.meshgrid(*([tq] * dim), indexing="ij")
+    W = np.prod(np.meshgrid(*([wq] * dim), indexing="ij"), axis=0)
+    X = [torch.as_tensor(v) for v in X]
+    return float(np.sum(W * (weight(*X) * exact(*X)).numpy()))
+
+
+def phase_main_path_graded_3d(device="cuda", gate_basis=False):
+    """HybridSolver3DGraded at 64^3 on the power-law mesh (poisson_3d) and
+    at 32^3 with variable coefficients through autograd, adaptive_solve_3d
+    from 16^3, goal_adaptive_solve_3d from 8^3 and goal_adaptive_solve_2d
+    from 64^2 (two rounds each; the 2D loop through graded2d_kernel):
+    Jacobi-CG converged, solve_ok, Linf within its gate (the 3D goal loop:
+    its last goal error); in both goal loops the goal error falls each
+    round and the estimate tracks it within GOAL_TRACK.  Returns the 2D
+    loop's launch counts.  With ``gate_basis`` the 2D loop runs once more
+    through the torch route, for its Linf (the rest has no kernel)."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch import (Solver2DConfig, Solver3DConfig,
+                                            get_problem_2d, get_problem_3d,
+                                            goal_adaptive_solve_2d,
+                                            goal_adaptive_solve_3d)
+    from hybrid_fem_lssvr_tpu_torch.models import hybrid2d_graded as HG2
+    from hybrid_fem_lssvr_tpu_torch.models import hybrid3d_graded as HG
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d_graded as KG
+
+    pts = points_3d()
+    for label, name, n in (("poisson_3d_graded", "poisson_3d", NG3D),
+                           ("variable_coeff_elliptic_3d_graded",
+                            "variable_coeff_elliptic_3d", NG3D_VAR)):
+        torch.cuda.reset_peak_memory_stats()
+        s, sol, solve_s = graded_3d_solve(name, n, device)
+        rec = gate(label, s, sol, pts, GATES_NEW, (n, n, n, M3D, M3D, M3D),
+                   GRADED3D_CG_MAXITER)
+        emit("main_path_graded_3d", run=label, n=n,
+             grading=f"power {GRADED_POWER}", route="torch",
+             solve_s=solve_s,
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **rec)
+        del s, sol
+        torch.cuda.empty_cache()
+    cfg3 = Solver3DConfig(nx=16, ny=16, nz=16, M=M3D, n_colloc=C3D,
+                          dtype="float32", fem_dtype="float64",
+                          precond="jacobi", cg_maxiter=GRADED3D_CG_MAXITER)
+    t0 = time.perf_counter()
+    res = HG.adaptive_solve_3d(get_problem_3d("poisson_3d"), cfg3, rounds=2,
+                               eval_points=pts, device=device)
+    solve_s = time.perf_counter() - t0
+    linf = res.history[-1]["linf"]
+    check(bool(res.solution.solve_ok.all()), "adaptive_3d: fell back")
+    check(res.solution.cg_iters < GRADED3D_CG_MAXITER, "adaptive_3d: CG")
+    check(linf < GATES_NEW["adaptive_3d"], f"adaptive_3d: Linf {linf}")
+    emit("main_path_graded_3d", run="adaptive_3d", solve_s=solve_s,
+         linf=linf, gate=GATES_NEW["adaptive_3d"], history=res.history)
+    for label, loop, problem, weight, c, dim in (
+            ("goal_3d", goal_adaptive_solve_3d, get_problem_3d("poisson_3d"),
+             goal_weight_3d, dataclasses.replace(cfg3, nx=8, ny=8, nz=8), 3),
+            ("goal_2d", goal_adaptive_solve_2d, get_problem_2d("poisson_2d"),
+             goal_weight_2d, Solver2DConfig(
+                 nx=64, ny=64, M=M2D, n_colloc=C2D, dtype="float32",
+                 fem_dtype="float64", precond="jacobi",
+                 cg_maxiter=GRADED_CG_MAXITER), 2)):
+        j_exact = exact_goal(weight, problem.exact, dim, 80 if dim == 3
+                             else 200)
+        KG.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = loop(problem, weight, c, rounds=2, exact_goal=j_exact,
+                   device=device)
+        solve_s = time.perf_counter() - t0
+        launched = KG.launch_counts()["fused_enhance_graded_2d"]
+        want = 2 * len(res.history) if label == "goal_2d" else 0
+        check(launched == want, f"{label}: {launched} launches of "
+              f"graded2d_kernel, expected {want}")
+        sol = res.solution
+        check(bool(sol.solve_ok.all()) and bool(res.adjoint.solve_ok.all()),
+              f"{label}: elements fell back")
+        check(sol.cg_iters < c.cg_maxiter, f"{label}: CG did not converge")
+        q = tuple(v.to(device) for v in (pts if label == "goal_3d"
+                                          else points_2d()))
+        u = (HG.evaluate_3d_graded(sol, *q) if label == "goal_3d"
+             else HG2.evaluate_2d_graded(sol, *q))
+        linf = float((u - problem.exact(*q)).abs().max())
+        errs = [abs(r["true_error"]) for r in res.history]
+        check(all(b < a for a, b in zip(errs, errs[1:])),
+              f"{label}: goal errors {errs} do not fall each round")
+        for r in res.history[:2]:  # as tests/test_goal.py: the last
+            # round may sit where the error crosses zero
+            check(abs(r["est_error"] - r["true_error"])
+                  < GOAL_TRACK * abs(r["true_error"]), f"{label}: estimate "
+                  f"{r['est_error']} against the goal error "
+                  f"{r['true_error']}")
+        gated = errs[-1] if label == "goal_3d" else linf
+        check(gated < GATES_NEW[label], f"{label}: "
+              f"{'goal error' if label == 'goal_3d' else 'Linf'} {gated} "
+              f">= gate {GATES_NEW[label]}")
+        emit("main_path_graded_3d", run=label, solve_s=solve_s,
+             launched=launched, linf=linf, exact_goal=j_exact,
+             gated="goal_error" if label == "goal_3d" else "linf",
+             gate=GATES_NEW[label], cg_iters=sol.cg_iters,
+             history=res.history)
+        counts = {"fused_enhance_graded_2d":
+                  KG.launch_counts()["fused_enhance_graded_2d"]}
+        if gate_basis and label == "goal_2d":
+            tsol = loop(problem, weight, dataclasses.replace(
+                c, backend="torch"), rounds=2, device=device).solution
+            emit("gate_basis_graded_3d", run=label, route="torch",
+                 linf=float((HG2.evaluate_2d_graded(tsol, *q)
+                             - problem.exact(*q)).abs().max()))
+    emit("launch_counts_graded_3d", **counts)
+    return counts
+
+
+def phase_main_path_nonlinear(device="cuda"):
+    """The semilinear solves: hybrid_solve_semilinear on cubic_1d and
+    bratu_1d at 2^20 elements (p1 and numerov; float64), _2d on cubic_2d at
+    256^2 and _3d on cubic_3d at 32^3 (float32): the coarse Newton's
+    residual history (quadratic, then at rounding), the final nonlinear
+    collocation residual, solve_ok and Linf within their gates."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch import (Solver2DConfig, Solver3DConfig,
+                                            SolverConfig)
+    from hybrid_fem_lssvr_tpu_torch.models import nonlinear as NL
+
+    cfg1 = SolverConfig(num_nodes=E_NONLIN + 1, M=M, gamma=1e4, n_colloc=C,
+                        dtype="float64")
+    dense = torch.linspace(-1.0, 1.0, DENSE_POINTS, dtype=torch.float64,
+                           device=device)
+    pts3 = tuple(v.to(device=device) for v in points_3d())
+    pts2 = pts3[:2]
+    runs = [(f"{n}/{sch}", functools.partial(
+        NL.hybrid_solve_semilinear, getattr(NL, n)(), cfg1, scheme=sch),
+        lambda sol: NL.evaluate_semilinear(sol, dense),
+        lambda: torch.sin(torch.pi * dense), "1d")
+        for n in ("cubic_1d", "bratu_1d") for sch in ("p1", "numerov")]
+    cubic2, cubic3 = NL.cubic_2d(), NL.cubic_3d()
+    runs.append(("cubic_2d", functools.partial(
+        NL.hybrid_solve_semilinear_2d, cubic2, Solver2DConfig(
+            nx=N2D_NONLIN, ny=N2D_NONLIN, M=M2D, n_colloc=C2D,
+            dtype="float32", cg_maxiter=GRADED_CG_MAXITER)),
+        lambda sol: NL.evaluate_semilinear_2d(sol, *pts2),
+        lambda: cubic2.exact(*pts2), "cubic_2d"))
+    runs.append(("cubic_3d", functools.partial(
+        NL.hybrid_solve_semilinear_3d, cubic3, Solver3DConfig(
+            nx=N3D_NONLIN, ny=N3D_NONLIN, nz=N3D_NONLIN, M=M3D,
+            n_colloc=C3D, dtype="float32",
+            cg_maxiter=GRADED3D_CG_MAXITER)),
+        lambda sol: NL.evaluate_semilinear_3d(sol, *pts3),
+        lambda: cubic3.exact(*pts3), "cubic_3d"))
+    for label, solve, evaluate, exact, colloc_key in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = solve(device=device)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        r = [float(v) for v in sol.newton_residuals]
+        colloc = float(sol.colloc_residual)
+        linf = float((evaluate(sol) - exact()).abs().max())
+        check(bool(sol.solve_ok.all()), f"{label}: elements fell back")
+        # quadratic contraction, then down to the rows' float64 rounding
+        check(r[1] < 0.3 * r[0] and r[-1] < NEWTON_REL * r[0],
+              f"{label}: Newton residuals {r}")
+        check(colloc < COLLOC_GATES[colloc_key], f"{label}: collocation "
+              f"residual {colloc} >= {COLLOC_GATES[colloc_key]}")
+        check(linf < GATES_NEW[label], f"{label}: Linf {linf} >= gate "
+              f"{GATES_NEW[label]}")
+        emit("main_path_nonlinear", run=label,
+             dtype=str(sol.coeffs.dtype).split(".")[-1],
+             solve_s=solve_s, newton_residuals=r, colloc_residual=colloc,
+             colloc_gate=COLLOC_GATES[colloc_key], linf=linf,
+             gate=GATES_NEW[label])
+        del sol
+        torch.cuda.empty_cache()
+
+
+IDENTITY_CHILD = r"""
+import functools, json, sys
+import torch
+tree, out = sys.argv[1], sys.argv[2]
+sys.path.insert(0, tree)
+import chip_smoke as cs
+from hybrid_fem_lssvr_tpu_torch.models import problems
+from hybrid_fem_lssvr_tpu_torch.ops import kernels as K
+torch.backends.cuda.matmul.allow_tf32 = False
+fem, _, host, h, graded = cs.kernel_inputs("cuda")
+vc = problems.variable_coeff_elliptic()
+cases = {
+    "uniform": ((fem, vc, host, -1.0, h, cs.C),
+                dict(f_shifted_fn=vc.f_shifted)),
+    "graded": ((torch.sin(torch.pi * graded), vc, host, -1.0, h, cs.C),
+               dict(nodes=graded)),
+}
+times = {}
+for label, (args, kw) in cases.items():
+    for diag in (True, False):
+        fn = functools.partial(K.fused_enhance_varcoeff, *args,
+                               with_diagnostics=diag, **kw)
+        torch.save(fn(), f"{out}/{label}_{int(diag)}.pt")
+        times[f"{label}_{int(diag)}"] = cs.device_ms(fn, "varcoeff_kernel")[1]
+print(json.dumps(times))
+"""
+
+
+def phase_identity(old_tree):
+    """``--identity``: the 1D varcoeff kernel of OLD_TREE and of this
+    checkout, bit for bit and in time (see the module docstring)."""
+    import tempfile
+
+    import torch
+
+    def run(tree, out):
+        os.makedirs(out, exist_ok=True)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        res = subprocess.run([sys.executable, "-c", IDENTITY_CHILD, tree,
+                              out], capture_output=True, text=True, env=env,
+                             cwd=tree)
+        check(res.returncode == 0, f"{tree}: {res.stderr[-4000:]}")
+        return json.loads(res.stdout.strip().splitlines()[-1])
+
+    trees = {"old": os.path.abspath(old_tree), "new": ROOT}
+    times = {"old": [], "new": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for which in ("old", "new", "new", "old"):
+            times[which].append(run(trees[which], os.path.join(tmp, which)))
+        identical = {}
+        for name in sorted(os.listdir(os.path.join(tmp, "old"))):
+            a, b = (torch.load(os.path.join(tmp, w, name))
+                    for w in ("old", "new"))
+            identical[name[:-3]] = all(
+                (x is None and y is None) or (x is not None and y is not None
+                                              and torch.equal(x, y))
+                for x, y in zip(a, b))
+    emit("identity", old_tree=trees["old"], identical=identical,
+         kernel_ms=times, device=torch.cuda.get_device_name(0))
+    check(all(identical.values()), f"outputs differ: {identical}")
+
+
 def main():
     import torch
 
@@ -2035,10 +2805,15 @@ def main():
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
          float32_matmul_precision=torch.get_float32_matmul_precision())
+    if "--identity" in sys.argv:
+        phase_identity(sys.argv[sys.argv.index("--identity") + 1])
+        return
 
     phase_build()
     summary = phase_kernels()
     torch.cuda.synchronize()
+    summary["fused_enhance_varcoeff"].update(phase_kernels_family())
+    torch.cuda.empty_cache()
     summary.update(phase_kernels_2d())
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2064,6 +2839,21 @@ def main():
     counts.update(phase_main_path_elastic(gate_basis=gate_basis))
     phase_main_path_elastic_3d()
     phase_stages_elastic()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # Each new path's launches, read with the counts set to 0 just before
+    # it, add to the kernel's main-path launches.
+    for phase in (functools.partial(phase_main_path_families,
+                                    gate_basis=gate_basis),
+                  phase_main_path_adaptive,
+                  functools.partial(phase_main_path_graded_3d,
+                                    gate_basis=gate_basis)):
+        for kname, n in phase().items():
+            counts[kname] += n
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    phase_stages_families()
+    phase_main_path_nonlinear()
     torch.cuda.synchronize()
 
     check(sorted(summary) == sorted(KERNELS), f"kernels checked: "

@@ -10,9 +10,11 @@
 // Design common to all three: one thread per element.  The host-f64
 // operators ("statics", at most a few hundred floats) are copied once per
 // block into shared memory and read there as warp-wide broadcasts.  Nodal
-// values fem[e], fem[e+1] and the sampled per-element inputs (laid out
-// [rows][E], element index fastest) are read with coalesced loads (by
-// varcoeff_kernel through cp.async, one element ahead); all per-element
+// values fem[e], fem[e+1] (varcoeff_kernel: fem[n], fem[n+1] with
+// n = e + e / Ef, for P families of Ef elements solved in one launch) and
+// the sampled per-element inputs (laid out [rows][E], element index
+// fastest) are read with coalesced loads (by varcoeff_kernel through
+// cp.async, one element ahead); all per-element
 // algebra runs in registers, with M and C as template parameters so every
 // small array stays in registers; w is written straight to its [E, M]
 // row.  The ragged edge (E not a multiple of the block) is masked, so any
@@ -203,6 +205,10 @@ shared_kernel(const float* __restrict__ fem, const float* __restrict__ f,
 //   column);  y = R^-1 Q^T g;  w = wp + Z y.
 //   Graded mode (he != nullptr): rho = h_ref / h_e folds into a2 (rho^2)
 //   and a1 (rho).
+//   Families: the E elements are P = E / Ef families of Ef elements each
+//   (a parametric family solved in one launch); family p's nodal values
+//   are fem[p (Ef + 1) ...], so element e reads fem[e + e / Ef] and the
+//   next value.  Ef = E is the single mesh.
 //   Diagnostics: slack = s^2 max|g - G y|, bcv = max|bc - B w|,
 //   cond = max R_jj / max(min R_jj, eps).
 //
@@ -256,19 +262,23 @@ struct VcLayout {
 };
 
 // Starts the copy of element e's inputs into a stage of the thread's slots.
+// Element e = p Ef + k of family p reads its nodal pair at e + e / Ef and
+// the next index: the families' Ef + 1 nodal values lie one after another,
+// so no element reads across the seam between two families.
 template <int M, int C>
 __device__ __forceinline__ void vc_fetch(float* slot,
                                          const float* __restrict__ coef,
                                          const float* __restrict__ fem,
                                          const float* __restrict__ he, int e,
-                                         int E) {
+                                         int E, int Ef) {
   using L = VcLayout<M, C>;
   constexpr int T = kVcThreads;
 #pragma unroll 4
   for (int r = 0; r < 4 * C; ++r)
     enh::cp_async4(slot + r * T, coef + (size_t)r * E + e);
-  enh::cp_async4(slot + L::FEM * T, fem + e);
-  enh::cp_async4(slot + (L::FEM + 1) * T, fem + e + 1);
+  const int n = e + e / Ef;
+  enh::cp_async4(slot + L::FEM * T, fem + n);
+  enh::cp_async4(slot + (L::FEM + 1) * T, fem + n + 1);
   if (he != nullptr) enh::cp_async4(slot + L::HE * T, he + e);
 }
 
@@ -429,7 +439,7 @@ varcoeff_kernel(const float* __restrict__ fem, const float* __restrict__ coef,
                 const float* __restrict__ he, const float* __restrict__ statics,
                 float* __restrict__ w, float* __restrict__ slack,
                 float* __restrict__ bcv, float* __restrict__ cond, int E,
-                float h_ref, float inv_s2, float s2, int diag) {
+                int Ef, float h_ref, float inv_s2, float s2, int diag) {
   using L = VcLayout<M, C>;
   constexpr int T = kVcThreads, STAGE = L::SLOTS * T;
   extern __shared__ __align__(16) float s[];
@@ -437,14 +447,15 @@ varcoeff_kernel(const float* __restrict__ fem, const float* __restrict__ coef,
   float* slots = s + L::SIZE + threadIdx.x;  // stage b: slots + b STAGE
   const int stride = gridDim.x * T;
   int e = blockIdx.x * T + threadIdx.x;
-  if (e < E) vc_fetch<M, C>(slots, coef, fem, he, e, E);
+  if (e < E) vc_fetch<M, C>(slots, coef, fem, he, e, E, Ef);
   enh::cp_async_commit();
   for (int b = 0; e < E; e += stride, b ^= 1) {
     // The slots of the stage refilled below were last read for the element
     // before: keep those reads above the copy.
     asm volatile("" ::: "memory");
     if (e < E - stride)
-      vc_fetch<M, C>(slots + (b ^ 1) * STAGE, coef, fem, he, e + stride, E);
+      vc_fetch<M, C>(slots + (b ^ 1) * STAGE, coef, fem, he, e + stride, E,
+                     Ef);
     enh::cp_async_commit();
     enh::cp_async_wait<1>();  // this element's copies have landed
     vc_element<M, C>(s, slots + b * STAGE, he != nullptr, e, h_ref, inv_s2,
@@ -467,8 +478,8 @@ template <int M, int C>
 cudaError_t launch_varcoeff(int device, cudaStream_t st, const float* fem,
                             const float* coef, const float* he,
                             const float* statics, float* w, float* slack,
-                            float* bcv, float* cond, int E, float h_ref,
-                            float inv_s2, float s2, int diag) {
+                            float* bcv, float* cond, int E, int Ef,
+                            float h_ref, float inv_s2, float s2, int diag) {
   size_t smem = 0;
   cudaError_t err = cudaSuccess;
   const int resident = vc_shape<M, C>(device, &smem, &err);
@@ -476,8 +487,8 @@ cudaError_t launch_varcoeff(int device, cudaStream_t st, const float* fem,
   const int need = (int)(((long long)E + kVcThreads - 1) / kVcThreads);
   varcoeff_kernel<M, C>
       <<<(unsigned)(need < resident ? need : resident), kVcThreads, smem,
-         st>>>(fem, coef, he, statics, w, slack, bcv, cond, E, h_ref, inv_s2,
-               s2, diag);
+         st>>>(fem, coef, he, statics, w, slack, bcv, cond, E, Ef, h_ref,
+               inv_s2, s2, diag);
   return cudaGetLastError();
 }
 
@@ -544,18 +555,21 @@ int enhance1d_shared_f32(int device, void* stream, const float* fem,
 int enhance1d_varcoeff_f32(int device, void* stream, const float* fem,
                            const float* coef, const float* he,
                            const float* statics, float* w, float* slack,
-                           float* bcv, float* cond, int E, int M, int C,
-                           float h_ref, float inv_s2, float s2, int diag) {
+                           float* bcv, float* cond, int E, int Ef, int M,
+                           int C, float h_ref, float inv_s2, float s2,
+                           int diag) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  // (the persistent threads step e by up to a few 1e5 within int range)
-  if (E < 1 || E > INT_MAX - (1 << 24) || M < 3)
+  // (the persistent threads step e by up to a few 1e5 within int range; the
+  // nodal index e + e / Ef stays below E + E / Ef + 1)
+  if (E < 1 || E > INT_MAX - (1 << 24) || M < 3 || Ef < 1 || E % Ef != 0 ||
+      E / Ef > (1 << 24))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define X(m, c)                                                            \
   if (M == m && C == c)                                                    \
     return (int)launch_varcoeff<m, c>(device, st, fem, coef, he, statics,  \
-                                      w, slack, bcv, cond, E, h_ref,       \
+                                      w, slack, bcv, cond, E, Ef, h_ref,   \
                                       inv_s2, s2, diag);
   ENH_SHAPES(X)
 #undef X

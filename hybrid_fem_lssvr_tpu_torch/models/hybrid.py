@@ -124,7 +124,8 @@ def fem_solve(problem: Problem1D, nodes: torch.Tensor, cfg: SolverConfig):
 
 
 def _element_data(problem: Problem1D, nodes, fem_values, cfg: SolverConfig):
-    """Per-element collocation data: mapped points, rhs, endpoint values.
+    """Per-element collocation data: mapped points, rhs, endpoint values
+    (nodes [..., N]: leading axes are a family of meshes).
 
     Boundary elements pin to the global Dirichlet data (by position, not
     float equality); Neumann / Robin ends keep the FEM nodal value.  (The
@@ -132,18 +133,18 @@ def _element_data(problem: Problem1D, nodes, fem_values, cfg: SolverConfig):
     which are not ported yet.)
     """
     dtype, device = nodes.dtype, nodes.device
-    xl, xr = nodes[:-1], nodes[1:]
+    xl, xr = nodes[..., :-1], nodes[..., 1:]
     h = xr - xl  # [E]
     t = legendre.collocation_points(cfg.n_colloc, dtype=dtype, device=device)
-    x_colloc = 0.5 * (xl + xr)[:, None] + 0.5 * h[:, None] * t[None, :]
+    x_colloc = 0.5 * (xl + xr)[..., None] + 0.5 * h[..., None] * t
     f_colloc = problem.f(x_colloc) * torch.ones_like(x_colloc)  # [E, C]
 
-    u_left = fem_values[:-1].clone()
-    u_right = fem_values[1:].clone()
+    u_left = fem_values[..., :-1].clone()
+    u_right = fem_values[..., 1:].clone()
     if problem.bc_left == "dirichlet":
-        u_left[0] = problem.g_left
+        u_left[..., 0] = problem.g_left
     if problem.bc_right == "dirichlet":
-        u_right[-1] = problem.g_right
+        u_right[..., -1] = problem.g_right
     bc = torch.stack([u_left, u_right], dim=-1)  # [E, 2]
     return x_colloc, f_colloc, bc, h, u_left, u_right
 
@@ -205,9 +206,9 @@ def _dirichlet_consistent(problem, fem_values):
     Neumann / Robin ends keep their FEM value."""
     fv = fem_values.clone()
     if problem.bc_left == "dirichlet":
-        fv[0] = problem.g_left
+        fv[..., 0] = problem.g_left
     if problem.bc_right == "dirichlet":
-        fv[-1] = problem.g_right
+        fv[..., -1] = problem.g_right
     return fv
 
 
@@ -236,8 +237,18 @@ def lssvr_enhance(problem: Problem1D, nodes, fem_values, cfg: SolverConfig,
     ``uniform_geom``: (x0, h) Python floats when the mesh is uniform; with
     the 'cuda' backend it selects the shared-operator kernels (constant
     coefficients) or the uniform mode of the per-element kernel.
+
+    ``nodes`` and ``fem_values`` [P, N] are a family of P meshes (the
+    problem's callables then see points with P leading) enhanced as one
+    batch of P E elements, on the card in one kernel launch; w is then
+    [P, E, M] and the diagnostics [P, E].  Families take per-element
+    operators only (``shared_ops`` None).
     """
-    E = nodes.shape[0] - 1
+    E = nodes.shape[-1] - 1  # elements (of each mesh of a family)
+    lead = nodes.shape[:-1]
+    if lead and shared_ops is not None:
+        raise ValueError("a family of meshes takes per-element operators "
+                         "(shared_ops=None)")
     backend = _resolve_backend(cfg, nodes.device)
     if (shared_ops is not None and uniform_geom is not None
             and backend == "cuda"):
@@ -270,7 +281,7 @@ def lssvr_enhance(problem: Problem1D, nodes, fem_values, cfg: SolverConfig,
         # Per-element operators: the same null-space CGS2-QR algebra as the
         # torch route below, in one kernel.  Without uniform_geom the
         # kernel runs in graded-mesh mode from the node array.
-        fv = _dirichlet_consistent(problem, fem_values)
+        fv = _dirichlet_consistent(problem, fem_values).contiguous()
         if uniform_geom is not None:
             x0, h = uniform_geom
             graded_nodes = None
@@ -285,8 +296,10 @@ def lssvr_enhance(problem: Problem1D, nodes, fem_values, cfg: SolverConfig,
             with_diagnostics=cfg.diagnostics,
             f_shifted_fn=problem.f_shifted, nodes=graded_nodes,
         )
-        return _kernel_finalize(w, slack, bcv, fv[:-1], fv[1:], cfg,
-                                cond=cond)
+        # Each element's gate and fallback from its own family's values.
+        return _unflatten(*_kernel_finalize(
+            w, slack, bcv, fv[..., :-1].reshape(-1), fv[..., 1:].reshape(-1),
+            cfg, cond=cond), lead)
 
     x_colloc, f_colloc, bc, h, u_left, u_right = _element_data(
         problem, nodes, fem_values, cfg)
@@ -298,23 +311,34 @@ def lssvr_enhance(problem: Problem1D, nodes, fem_values, cfg: SolverConfig,
             cfg.M, cfg.n_colloc, dtype, device)
         B = kkt.boundary_rows(V0)
         a2, a1, a0 = problem.colloc_coeffs(x_colloc)  # each [E, C]
-        scale = (2.0 / h)[:, None, None]
+        scale = (2.0 / h)[..., None, None]
         D = (
-            a2[:, :, None] * scale**2 * V2[None]
-            + a1[:, :, None] * scale * V1[None]
-            + a0[:, :, None] * V0[None]
+            a2[..., None] * scale**2 * V2
+            + a1[..., None] * scale * V1
+            + a0[..., None] * V0
         )
         V0h, _, _ = legendre.collocation_vandermonde_host(cfg.M,
                                                           cfg.n_colloc)
         Z_np, Pbc_np = kkt.nullspace_host(np.stack([V0h[0], V0h[-1]]))
         ZP = (torch.as_tensor(Z_np, dtype=dtype, device=device),
               torch.as_tensor(Pbc_np, dtype=dtype, device=device))
+        C, M = D.shape[-2:]
         w, diags = kkt.solve_batched(
-            D, B, f_colloc, bc, cfg.gamma,
+            D.reshape(-1, C, M), B, f_colloc.reshape(-1, C),
+            bc.reshape(-1, 2), cfg.gamma,
             formulation=cfg.formulation, method=cfg.kkt_method,
             refine_steps=cfg.refine_steps, ZP=ZP,
         )
-    return kkt.apply_fallback(w, diags, u_left, u_right), diags
+    return _unflatten(kkt.apply_fallback(w, diags, u_left.reshape(-1),
+                                         u_right.reshape(-1)), diags, lead)
+
+
+def _unflatten(w, diags, lead):
+    """(w [..., E, M], diagnostics [..., E]) from a batch of P E elements."""
+    if not lead:
+        return w, diags
+    return (w.reshape(*lead, -1, w.shape[-1]), kkt.KKTDiagnostics(
+        *(None if v is None else v.reshape(*lead, -1) for v in diags)))
 
 
 def hybrid_solve(problem: Problem1D, cfg: SolverConfig, nodes: torch.Tensor,

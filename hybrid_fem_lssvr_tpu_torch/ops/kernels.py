@@ -120,26 +120,43 @@ def _sample_shared(fem_values, f_fn, x0, h, n_colloc, f_shifted_fn):
 
 def _sample_varcoeff(fem_values, problem, x0, h, n_colloc, f_shifted_fn,
                      nodes):
-    """Returns (coef [4, C, E] = (a2, a1, a0, f), he [E] or None)."""
-    E = fem_values.shape[0] - 1
+    """Returns (coef [4, C, E] = (a2, a1, a0, f), he [E] or None).
+
+    ``fem_values`` (and ``nodes``) [N] is one mesh, [P, Ef+1] a family of P
+    meshes: the callables see points [P, C, Ef] (P = 1 for one mesh; the
+    family axis leads, so a parameter shaped [P, 1, 1] broadcasts),
+    E = P Ef, and element p Ef + k is family p's element k.
+    """
+    Ef = fem_values.shape[-1] - 1
+    P = fem_values.numel() // (Ef + 1)
     dtype, device = fem_values.dtype, fem_values.device
     t = legendre.collocation_points(n_colloc, dtype=dtype, device=device)
     if nodes is not None:
-        xl = nodes[:-1][None]
-        he = (nodes[1:] - nodes[:-1])[None]
-        d = ((t + 1.0) * 0.5)[:, None] * he  # [C, E]
+        nodes = nodes.reshape(P, Ef + 1)
+        xl = nodes[:, None, :-1]  # [P, 1, Ef]
+        he = nodes[:, 1:] - nodes[:, :-1]  # [P, Ef]
+        d = ((t + 1.0) * 0.5)[None, :, None] * he[:, None, :]  # [P, C, Ef]
     else:
-        xl = _left_edges(E, x0, h, dtype, device)[None]
+        xl = _left_edges(Ef, x0, h, dtype, device)[None, None, :]
         he = None
-        d = ((t + 1.0) * (0.5 * h))[:, None]  # [C, 1]
-    xq = xl + d  # [C, E]
+        d = ((t + 1.0) * (0.5 * h))[None, :, None]  # [1, C, 1]
+    xq = xl + d
     a2, a1, a0 = problem.colloc_coeffs(xq)
     if f_shifted_fn is not None and nodes is None:
         f = f_shifted_fn(xl, d)
     else:
         f = problem.f(xq) * torch.ones_like(xq)
-    coef = torch.stack([v.expand(n_colloc, E) for v in (a2, a1, a0, f)])
-    return coef.contiguous(), (None if he is None else he[0].contiguous())
+    coef = torch.stack([v.expand(P, n_colloc, Ef) for v in (a2, a1, a0, f)])
+    coef = coef.transpose(1, 2).reshape(4, n_colloc, P * Ef)
+    return coef.contiguous(), (None if he is None else
+                               he.reshape(-1).contiguous())
+
+
+def _nodal_pairs(fem_values):
+    """bc [2, E]: each element's (left, right) nodal values, within its own
+    family of [P, Ef+1] ([N]: one family)."""
+    fam = fem_values.reshape(-1, fem_values.shape[-1])
+    return torch.stack([fam[:, :-1].reshape(-1), fam[:, 1:].reshape(-1)])
 
 
 # --------------------------------------------------------------------------
@@ -205,7 +222,7 @@ def _varcoeff_system(fem_values, coef, he, host, h):
         a2 = a2 * (rho * rho)
         a1 = a1 * rho
     AZ2, AZ1, AZ0 = host.AZ[0], host.AZ[1], host.AZ[2]
-    bc = torch.stack([fem_values[:-1], fem_values[1:]])  # [2, E]
+    bc = _nodal_pairs(fem_values)  # [2, E]
     wp = host.Pbc @ bc  # [M, E]
     apbc = host.AP.reshape(3 * C, 2) @ bc  # [3C, E]
     Dwp = a2 * apbc[0:C] + a1 * apbc[C:2 * C] + a0 * apbc[2 * C:3 * C]
@@ -366,7 +383,8 @@ def _shared_cuda(fem_values, f, ops, with_diagnostics):
 
 def _varcoeff_cuda(fem_values, coef, he, host, h, with_diagnostics):
     name = "fused_enhance_varcoeff"
-    E = fem_values.shape[0] - 1
+    E = coef.shape[2]
+    Ef = fem_values.shape[-1] - 1  # elements a family (E: one mesh)
     M = host.Z.shape[0]
     C = coef.shape[1]
     extra = (coef,) if he is None else (coef, he)
@@ -381,7 +399,7 @@ def _varcoeff_cuda(fem_values, coef, he, host, h, with_diagnostics):
     err = lib.enhance1d_varcoeff_f32(
         dev.index, _stream(fem_values), _ptr(fem_values), _ptr(coef),
         _ptr(he), _ptr(statics), _ptr(w), _ptr(slack), _ptr(bcv),
-        _ptr(cond), E, M, C, float(h), float(1.0 / host.s2),
+        _ptr(cond), E, Ef, M, C, float(h), float(1.0 / host.s2),
         float(host.s2), int(with_diagnostics))
     _raise_on(lib, name, err)
     fused_enhance_varcoeff.launches += 1
@@ -476,6 +494,12 @@ def fused_enhance_varcoeff(fem_values, problem, host: VarCoeffOperators,
     widths come from the node array and rho = h / h_e (h the reference width
     ``host`` was built at) is folded into the coefficients.  Returns
     (w [E, M], slack, bcv, cond), the last three None without diagnostics.
+
+    Families: ``fem_values`` (and ``nodes``) [P, Ef+1] hold P meshes of Ef
+    elements, solved in one launch as E = P Ef elements (w [P Ef, M], family
+    p's elements at rows p Ef ...).  Each element pairs with its own family's
+    nodal values; the problem's callables see points [P, C, Ef] (one mesh:
+    [1, C, E]).
     """
     _check_varcoeff_args(host)
     coef, he = _sample_varcoeff(fem_values, problem, x0, h, n_colloc,

@@ -81,10 +81,16 @@ def boundary_rows(V0):
 
 
 def _equilibrated_cholesky_factor(H):
-    """(L, s) with S H S = L L^T, S = diag(s), for SPD H [..., M, M]."""
+    """(L, s) with S H S = L L^T, S = diag(s), for SPD H [..., M, M].
+
+    An element whose H is not positive definite in the run dtype gets a
+    factor of NaNs, as ``jnp.linalg.cholesky`` returns: its solve is NaN,
+    so the diagnostics gate sends it to the fallback (torch's
+    ``cholesky`` would raise for the whole batch instead)."""
     s = torch.rsqrt(torch.diagonal(H, dim1=-2, dim2=-1))
     Hs = H * s[..., :, None] * s[..., None, :]
-    return torch.linalg.cholesky(Hs), s
+    L, info = torch.linalg.cholesky_ex(Hs)
+    return torch.where((info != 0)[..., None, None], torch.nan, L), s
 
 
 def _chol_solve(L, s, r):

@@ -112,7 +112,8 @@ def _mv2(A2, v2):  # [B,2,2] @ [B,2]
 
 
 def spike(a, b, c, rhs, block_size: int = 256):
-    """Blocked SPIKE solve of one right-hand side (rhs: [N]).
+    """Blocked SPIKE solve of one right-hand side (rhs: [N]), or of a batch
+    of systems (diagonals and rhs [..., N], as JAX's ``vmap`` of it).
 
     The N rows split into B blocks of ``block_size``: a batched Thomas
     eliminates inside every block at once (depth block_size, width B) and
@@ -120,58 +121,61 @@ def spike(a, b, c, rhs, block_size: int = 256):
     system over the block-boundary unknowns is solved by block PCR in
     log2(B) sweeps; local back substitution finishes.
     """
-    N = b.shape[0]
+    batch, N = b.shape[:-1], b.shape[-1]
+    a, b, c, rhs = (v.reshape(-1, N) for v in (a, b, c, rhs))  # [P, N]
+    P = b.shape[0]
     n = block_size
     B = -(-N // n)
     pad = B * n - N
     dtype, device = b.dtype, b.device
     if pad:
-        zeros = torch.zeros(pad, dtype=dtype, device=device)
-        a = torch.cat([a, zeros])
-        c = torch.cat([c, zeros])
-        b = torch.cat([b, torch.ones(pad, dtype=dtype, device=device)])
-        rhs = torch.cat([rhs, zeros])
-    ab = a.reshape(B, n).clone()
-    bb = b.reshape(B, n)
-    cb = c.reshape(B, n).clone()
-    rb = rhs.reshape(B, n)
+        zeros = torch.zeros(P, pad, dtype=dtype, device=device)
+        a = torch.cat([a, zeros], dim=1)
+        c = torch.cat([c, zeros], dim=1)
+        b = torch.cat([b, torch.ones(P, pad, dtype=dtype, device=device)],
+                      dim=1)
+        rhs = torch.cat([rhs, zeros], dim=1)
+    ab = a.reshape(P, B, n).clone()
+    bb = b.reshape(P, B, n)
+    cb = c.reshape(P, B, n).clone()
+    rb = rhs.reshape(P, B, n)
     # Strip inter-block couplings into the spikes.
-    l_coup = ab[:, 0].clone()  # couples to block d-1's last row
-    u_coup = cb[:, -1].clone()  # couples to block d+1's first row
-    ab[:, 0] = 0.0
-    cb[:, -1] = 0.0
+    l_coup = ab[..., 0].clone()  # couples to block d-1's last row
+    u_coup = cb[..., -1].clone()  # couples to block d+1's first row
+    ab[..., 0] = 0.0
+    cb[..., -1] = 0.0
 
-    rhs3 = torch.zeros(B, n, 3, dtype=dtype, device=device)
-    rhs3[:, :, 0] = rb
-    rhs3[:, 0, 1] = l_coup
-    rhs3[:, -1, 2] = u_coup
-    sol3 = _thomas_batched(ab, bb, cb, rhs3)  # [B, n, 3]
+    rhs3 = torch.zeros(P, B, n, 3, dtype=dtype, device=device)
+    rhs3[..., 0] = rb
+    rhs3[:, :, 0, 1] = l_coup
+    rhs3[:, :, -1, 2] = u_coup
+    sol3 = _thomas_batched(ab, bb, cb, rhs3)  # [P, B, n, 3]
     g, v, w = sol3[..., 0], sol3[..., 1], sol3[..., 2]
 
     # Reduced system on y_d = (x_first, x_last) of each block:
     #   y_d + L_d y_{d-1} + U_d y_{d+1} = gb_d
     # with L_d = [[0, v[d,0]], [0, v[d,-1]]], U_d = [[w[d,0], 0],
     # [w[d,-1], 0]], solved by 2x2-block parallel cyclic reduction.
-    L = torch.zeros(B, 2, 2, dtype=dtype, device=device)
-    L[:, 0, 1] = v[:, 0]
-    L[:, 1, 1] = v[:, -1]
-    U = torch.zeros(B, 2, 2, dtype=dtype, device=device)
-    U[:, 0, 0] = w[:, 0]
-    U[:, 1, 0] = w[:, -1]
-    eye = torch.eye(2, dtype=dtype, device=device).expand(B, 2, 2)
+    L = torch.zeros(P, B, 2, 2, dtype=dtype, device=device)
+    L[..., 0, 1] = v[..., 0]
+    L[..., 1, 1] = v[..., -1]
+    U = torch.zeros(P, B, 2, 2, dtype=dtype, device=device)
+    U[..., 0, 0] = w[..., 0]
+    U[..., 1, 0] = w[..., -1]
+    eye = torch.eye(2, dtype=dtype, device=device).expand(P, B, 2, 2)
     Dg = eye.clone()
-    r2 = torch.stack([g[:, 0], g[:, -1]], dim=-1)  # [B, 2]
+    r2 = torch.stack([g[..., 0], g[..., -1]], dim=-1)  # [P, B, 2]
 
     idx = torch.arange(B, device=device)
 
-    def shift_blocks(x, s, fill_eye):
-        zeros = torch.zeros((abs(s),) + x.shape[1:], dtype=dtype,
+    def shift_blocks(x, s, fill_eye):  # along the block axis
+        zeros = torch.zeros((P, abs(s)) + x.shape[2:], dtype=dtype,
                             device=device)
         if s > 0:
-            out = torch.cat([zeros, x])[:B]
+            out = torch.cat([zeros, x], dim=1)[:, :B]
             oob = idx < s
         else:
-            out = torch.cat([x, zeros])[-s:]
+            out = torch.cat([x, zeros], dim=1)[:, -s:]
             oob = idx >= B + s
         if fill_eye:
             out = torch.where(oob[:, None, None], eye, out)
@@ -194,22 +198,35 @@ def spike(a, b, c, rhs, block_size: int = 256):
         r2 = r2 + _mv2(alpha, r_m) + _mv2(beta, r_p)
         L = alpha @ L_m
         U = beta @ U_p
-    y = _mv2(_inv2(Dg), r2)  # [B, 2]
+    y = _mv2(_inv2(Dg), r2)  # [P, B, 2]
 
-    zero1 = torch.zeros(1, dtype=dtype, device=device)
-    y_last_prev = torch.cat([zero1, y[:-1, 1]])  # x_last(d-1), 0 for d=0
-    y_first_next = torch.cat([y[1:, 0], zero1])  # x_first(d+1), 0 for last
-    x = g - v * y_last_prev[:, None] - w * y_first_next[:, None]
-    return x.reshape(-1)[:N]
+    zero1 = torch.zeros(P, 1, dtype=dtype, device=device)
+    y_last_prev = torch.cat([zero1, y[:, :-1, 1]], dim=1)  # x_last(d-1)
+    y_first_next = torch.cat([y[:, 1:, 0], zero1], dim=1)  # x_first(d+1)
+    x = g - v * y_last_prev[..., None] - w * y_first_next[..., None]
+    return x.reshape(P, -1)[:, :N].reshape(*batch, N)
 
 
 def solve(a, b, c, rhs, method: str = "thomas"):
     """Dispatch: 'auto' | 'thomas' | 'pcr' | 'spike' | 'dense'.
 
     'auto' picks Thomas up to 8192 rows and blocked SPIKE above.  'pcr'
-    and 'dense' are test oracles, never picked by 'auto'."""
+    and 'dense' are test oracles, never picked by 'auto'.  Diagonals of
+    [..., N] are a batch of systems, one rhs [..., N] each (JAX's ``vmap``
+    of this function)."""
     if method == "auto":
-        method = "thomas" if b.shape[0] <= 8192 else "spike"
+        method = "thomas" if b.shape[-1] <= 8192 else "spike"
+    if b.ndim > 1:
+        if method == "thomas":
+            return _thomas_batched(a, b, c, rhs[..., None])[..., 0]
+        if method == "spike":
+            return spike(a, b, c, rhs)
+        if method in ("pcr", "dense"):  # the oracles, system by system
+            rows = [solve(*(v.reshape(-1, v.shape[-1])[i]
+                            for v in (a, b, c, rhs)), method=method)
+                    for i in range(b[..., 0].numel())]
+            return torch.stack(rows).reshape(rhs.shape)
+        raise ValueError(f"unknown tridiagonal method: {method}")
     if method == "thomas":
         return thomas(a, b, c, rhs)
     if method == "pcr":

@@ -4,8 +4,9 @@ The solver has no learned weights; its "parameters" are the host-f64
 operator bundles: ``SharedOperators`` (the shared affine enhancement map,
 1D, 2D and 3D), ``VarCoeffOperators`` (the statics of the 1D per-element
 kernel), ``VarCoeff2DOperators`` and ``VarCoeff3DOperators`` (the operator
-parts of the 2D and 3D per-element solves) and ``Graded2DOperators`` (the
-reference parts of the graded 2D solve).  The elasticity bundles (2D and
+parts of the 2D and 3D per-element solves) and ``Graded2DOperators`` and
+``Graded3DOperators`` (the reference parts of the graded 2D and 3D
+solves).  The elasticity bundles (2D and
 3D) pair a ``SharedOperators`` with their collocation and trace points
 (``elastic_bundle_from_arrays``).  Their JAX counterparts are converted
 field by field, through a dict of numpy arrays made with ``np.asarray`` on
@@ -26,6 +27,7 @@ import torch
 from ..models.hybrid2d import VarCoeff2DOperators
 from ..models.hybrid2d_graded import Graded2DOperators
 from ..models.hybrid3d import VarCoeff3DOperators
+from ..models.hybrid3d_graded import Graded3DOperators
 from ..ops.kernels import VarCoeffOperators
 from ..ops.kkt import SharedOperators
 
@@ -76,6 +78,14 @@ def graded2d_operators_from_arrays(arrays: dict, device=None,
     """``Graded2DOperators`` from numpy arrays keyed by field name (W20,
     W02, W10, W01, W00, B, Z, Pbc, AZ, AP)."""
     return Graded2DOperators(**_tensors(Graded2DOperators, arrays, device,
+                                        dtype))
+
+
+def graded3d_operators_from_arrays(arrays: dict, device=None,
+                                   dtype=torch.float32) -> Graded3DOperators:
+    """``Graded3DOperators`` from numpy arrays keyed by field name (W200,
+    W020, W002, W100, W010, W001, W000, B, Z, Pbc)."""
+    return Graded3DOperators(**_tensors(Graded3DOperators, arrays, device,
                                         dtype))
 
 

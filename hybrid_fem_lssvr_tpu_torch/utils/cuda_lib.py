@@ -158,7 +158,7 @@ def _bind(source, lib):
                                         i, i, i, i, i, i],
             "enhance1d_shared_f32": [i, p, p, p, p, p, p, p, i, i, i, i],
             "enhance1d_varcoeff_f32": [i, p, p, p, p, p, p, p, p, p,
-                                       i, i, i, f, f, f, i],
+                                       i, i, i, i, f, f, f, i],
             "enhance1d_varcoeff_launch_shape": [i] * 3
             + [ctypes.POINTER(i)] * 3,
         }

@@ -151,6 +151,76 @@ def test_varcoeff_kernel_over_several_rounds(dev, M, C, diag):
             assert_close(got, want, (w_tol,))
 
 
+def family_inputs(P, Ef, M, C, dev, seed=0, seam=False):
+    """P families of Ef elements: nodal values [P, Ef+1] (with ``seam``,
+    offset by +-1e3 per family), graded nodes [P, Ef+1], the advection-
+    diffusion family's batched problem and the statics."""
+    from hybrid_fem_lssvr_tpu_torch.models import batched as B
+
+    rng = np.random.default_rng(seed)
+    x = np.linspace(-1.0, 1.0, Ef + 1)
+    fem = np.sin(np.pi * x)[None] + 1e-3 * rng.normal(size=(P, Ef + 1))
+    if seam:
+        fem += 1e3 * np.arange(P)[:, None] * (-1.0) ** np.arange(P)[:, None]
+    widths = rng.uniform(0.5, 2.0, (P, Ef))
+    xs = np.concatenate([np.zeros((P, 1)), np.cumsum(widths, 1)], 1)
+    graded = torch.tensor(-1.0 + 2.0 * xs / xs[:, -1:], dtype=torch.float32,
+                          device=dev)
+    thetas = torch.tensor(np.stack([rng.uniform(0.5, 2.0, P),
+                                    rng.uniform(0.0, 3.0, P)], 1),
+                          dtype=torch.float32, device=dev)
+    prob = B.batched_problem(B.advdiff_family(), thetas)
+    h = 2.0 / Ef
+    host = K.VarCoeffOperators.host(M, C, h).to(dev)
+    return (torch.tensor(fem, dtype=torch.float32, device=dev), graded,
+            prob, host, h)
+
+
+@pytest.mark.parametrize("P,Ef", [(1, 4099), (3, 1000), (3, 777),
+                                  (128, 8191), (128, 97)])
+@pytest.mark.parametrize("seam", [False, True])
+def test_varcoeff_kernel_family_layout(dev, P, Ef, seam):
+    """The family launch (fem [P, Ef+1], E = P Ef, one launch) against the
+    plain version in the same layout, graded and uniform, at P = 1, 3 and
+    128 and ragged Ef; with ``seam`` the families' nodal values jump by
+    1e3, so an element that read across a family boundary would be off by
+    that much."""
+    M, C = 8, 12
+    fem, graded, prob, host, h = family_inputs(P, Ef, M, C, dev, seam=seam)
+    scale = float(fem.abs().max())
+    K.reset_launch_counts()
+    for nodes, w_tol in ((graded, GRADED_TOL), (None, VC_TOL)):
+        args = (fem, prob, host, -1.0, h, C)
+        got = K.fused_enhance_varcoeff(*args, nodes=nodes)
+        want = K.fused_enhance_varcoeff_ref(*args, nodes=nodes)
+        torch.cuda.synchronize()
+        assert got[0].shape == (P * Ef, M)
+        assert_close(got, want, (w_tol * max(1.0, scale), None,
+                                 BCV_TOL * max(1.0, scale), None))
+        torch.testing.assert_close(got[3], want[3], rtol=1e-3, atol=0)
+    assert K.launch_counts()["fused_enhance_varcoeff"] == 2
+
+
+def test_varcoeff_kernel_family_equals_single_launches(dev):
+    """Member p of a family launch equals the P = 1 launch on that
+    member's nodal values, nodes and coefficients, bit for bit: the same
+    element arithmetic, only the nodal index differs."""
+    from hybrid_fem_lssvr_tpu_torch.models import batched as B
+
+    P, Ef, M, C = 4, 1000, 8, 12
+    fem, graded, prob, host, h = family_inputs(P, Ef, M, C, dev, seam=True)
+    got = K.fused_enhance_varcoeff(fem, prob, host, -1.0, h, C,
+                                   nodes=graded)
+    coef, he = K._sample_varcoeff(fem, prob, -1.0, h, C, None, graded)
+    for p in range(P):
+        rows = slice(p * Ef, (p + 1) * Ef)
+        one = K._varcoeff_cuda(fem[p].contiguous(),
+                               coef[:, :, rows].contiguous(),
+                               he[rows].contiguous(), host, h, True)
+        for g, w in zip(got, one):
+            assert torch.equal(g[rows], w)
+
+
 def test_varcoeff_kernels_nan_coefficient(dev):
     """A NaN coefficient makes the diagnostics of its elements NaN, in the
     1D kernel and both 2D methods as in their plain versions, and leaves

@@ -4,8 +4,10 @@
     python3 chip_smoke.py --identity OLD_TREE
 
 ``--gate-basis`` also solves each 2D, graded 2D, 3D, 2D elasticity,
-family and goal-oriented 2D configuration through the plain torch route on
-the card and prints its Linf: the numbers their gates are set from.
+family and goal-oriented 2D configuration and the 1D eigensolve through
+the plain torch route on the card and prints its Linf (eigenvalue error):
+the numbers their gates are set from (the biharmonic chains and the mixed
+eigensolves print theirs on every run).
 
 ``--identity OLD_TREE`` runs only the 1D varcoeff kernel of two checkouts
 (OLD_TREE's and this one's, each built from its own sources in a process
@@ -35,8 +37,15 @@ Then ``solve_family`` and ``solve_groups`` (one launch a family),
 ``adaptive_solve`` and ``goal_adaptive_solve`` from 2^16 + 1 nodes (one
 graded-mode launch a solve), ``HybridSolver3DGraded`` at 64^3, the 3D
 adaptive and goal loops and the 2D goal loop (through graded2d_kernel),
-where the family solve spends its time, and the semilinear solves (1D at
-2^20 elements, 2D at 256^2, 3D at 32^3).
+where the family solve spends its time, the semilinear solves (1D at
+2^20 elements, 2D at 256^2, 3D at 32^3), the simply-supported biharmonic
+chains (1D at 2^20 elements, the plate at 1024^2 quads, the box at 128^3
+hexes; two launches a chain, each chain also on the torch route, the plate
+and the box once more under torch.profiler), the eigensolves (1D at 1,025
+nodes through fused_enhance_shared, the mixed 2D route at 256^2 and 3D at
+32^3 through the stacked kernels, each also on the torch route and with a
+lifted trace on the same pencil) and the clamped beam (E = 1,024) and
+plate (64^2) in float64.
 
 Each phase prints one JSON line.  The last lines are the kernel summary,
 the card's name and power limit as nvidia-smi reports them, and
@@ -2725,6 +2734,377 @@ def phase_main_path_nonlinear(device="cuda"):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------- biharmonic and eigen phases
+
+# The simply-supported chains (models/biharmonic.py): two hybrid solves
+# each, the second's rhs the first's enhanced polynomials read pointwise
+# (READ_CHUNK points at a time), each stage's enhancement through the
+# kernel of its dimension: 1D at 2^20 elements (M = 8, C = 12; the chain's
+# problems carry no constant_coeffs, so fused_enhance_varcoeff), the plate
+# at 1024^2 (M = C = 6, fused_enhance_stacked_2d) and the box at 128^3
+# (M = C = 4, fused_enhance_stacked_3d); float32 enhancement, float64
+# coarse stage.  The clamped beam (E = 1,024, M = 10, C = 12) and plate
+# (64^2, M = C = 10) run in float64 (their solvers refuse float32) on the
+# torch route; the plate's Jacobi-CG count grows as h^-2.  The eigensolves
+# (models/eigen.py): 1D at 1,025 nodes in float32, k = 4 (the shifted
+# problem's enhancement is fused_enhance_shared with f = 0: k rq_iters
+# launches), the mixed 2D route at 256^2 (k = 2, 15 iterations) and 3D at
+# 32^3 (k = 1, one oversampled vector, 10 iterations: its next eigenvalue,
+# the (1,1,2) triple, is twice the first, so each iteration gains 2x, and
+# a 3D MG-CG column solve at 32^3 takes ~1.4 s on an H100): float64
+# pencil, float32 enhancement through the stacked kernels with
+# trace_lift = 0, then the torch route and trace_lift = 6 (the torch route)
+# on the same pencil.
+E_BIH = 1 << 20
+N_BIH2 = 1024
+N_BIH3 = 128
+E_BEAM = 1024
+N_PLATE = 64
+M_PLATE = 10
+PLATE_CG_MAXITER = 20000
+N_EIG1 = 1025
+N_EIG2 = 256
+N_EIG3 = 32
+EIG_ITERS = {"2d": 15, "3d": 10}
+# Linf gates of the chains' displacement u, 10x the torch route's on the
+# card (the phase runs it every time and prints it; NVIDIA H100 80GB HBM3,
+# 700.00 W: 1.073e-6, 2.623e-6, 2.773e-4).
+GATES_BIH = {
+    "biharmonic_1d": 1.1e-5,
+    "biharmonic_2d": 2.6e-5,
+    "biharmonic_3d": 2.8e-3,
+}
+# The clamped solvers' Linf, 10x the card's (7.146e-8; 1.925e-6), and the
+# plate's Jacobi-CG count, 10% over the card's 1,132.
+GATES_CLAMPED = {"beam": 7.1e-7, "plate": 1.9e-5}
+PLATE_CG_GATE = 1250
+# max |lambda - exact| over the k eigenvalues, 10x the torch route's
+# (--gate-basis for the 1D one; 2.653e-6; 2.000e-4, 1.277e-9; 1.829e-3,
+# 7.406e-11).
+GATES_EIG = {
+    "eigen_1d": 2.7e-5,
+    "eigen_2d_mixed": 2.0e-3,
+    "eigen_2d_mixed/lift6": 1.3e-8,
+    "eigen_3d_mixed": 1.8e-2,
+    "eigen_3d_mixed/lift6": 7.4e-10,
+}
+# Kernel route against torch route on the card: the coefficients within
+# ROUTE_REL of their largest (measured at most 1.1e-6 of it: the kernels'
+# float32 rounding against cuBLAS's), the mixed eigenvalues within
+# ROUTE_LAMS_REL of the largest (measured 3.4e-8).
+ROUTE_REL = 1e-5
+ROUTE_LAMS_REL = 1e-6
+
+
+def profiled_busy(run, skip):
+    """(profiled wall ms, device-busy ms, device operations, seconds the
+    profile took in all) of one run() under torch.profiler, recording the
+    device only (reading a trace of ~300k device operations with their
+    host events takes minutes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t_all = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    ops = sum(e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name not in skip for e in events)
+    busy = busy_ms(events, skip=skip)
+    return wall, busy, ops, time.perf_counter() - t_all
+
+
+def timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_main_path_biharmonic(device="cuda"):
+    """solve_biharmonic_1d / _2d / _3d at 2^20 elements, 1024^2 quads and
+    128^3 hexes: each chain through the kernels (two launches, one a
+    stage; the counts read right after it), then through the torch route,
+    both held to the exact u and u'' (Lap u); the routes' coefficients
+    side by side; for the plate and the box one more kernel-route chain
+    under torch.profiler for the device's busy share.  Returns the launch
+    counts."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch import (Solver2DConfig, Solver3DConfig,
+                                            SolverConfig)
+    from hybrid_fem_lssvr_tpu_torch.models import biharmonic as BH
+    from hybrid_fem_lssvr_tpu_torch.models import hybrid as H1
+    from hybrid_fem_lssvr_tpu_torch.models import hybrid2d as H2
+    from hybrid_fem_lssvr_tpu_torch.models import hybrid3d as H3
+    from hybrid_fem_lssvr_tpu_torch.ops import eval as ops_eval
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels as K
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d as K2
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels3d as K3
+
+    p1, p2, p3 = (BH.sin_biharmonic_1d(), BH.sin_biharmonic_2d(),
+                  BH.sin_biharmonic_3d())
+    dense = torch.linspace(-1.0, 1.0, DENSE_POINTS, dtype=torch.float32,
+                           device=device)
+    pts2 = tuple(v.to(device) for v in points_2d())
+    pts3 = tuple(v.to(device) for v in points_3d())
+
+    def linf(evaluate, stage, exact, pts):
+        return float((evaluate(stage, *pts) - exact(*pts)).abs().max())
+
+    def eval_1d(s, x):
+        return ops_eval.evaluate(s.nodes, s.coeffs, x)
+
+    runs = [
+        ("biharmonic_1d", K, "fused_enhance_varcoeff",
+         lambda b: BH.solve_biharmonic_1d(p1, SolverConfig(
+             num_nodes=E_BIH + 1, M=M, gamma=1e4, n_colloc=C,
+             dtype="float32", fem_dtype="float64", backend=b),
+             device=device),
+         lambda s: (linf(eval_1d, s.u, p1.exact, (dense,)),
+                    linf(eval_1d, s.v, p1.exact_d2, (dense,)))),
+        ("biharmonic_2d", K2, "fused_enhance_stacked_2d",
+         lambda b: BH.solve_biharmonic_2d(p2, Solver2DConfig(
+             nx=N_BIH2, ny=N_BIH2, M=M2D, n_colloc=C2D, dtype="float32",
+             fem_dtype="float64", backend=b), device=device),
+         lambda s: (linf(H2.evaluate_2d, s.u, p2.exact, pts2),
+                    linf(H2.evaluate_2d, s.v, p2.exact_lap, pts2))),
+        ("biharmonic_3d", K3, "fused_enhance_stacked_3d",
+         lambda b: BH.solve_biharmonic_3d(p3, Solver3DConfig(
+             nx=N_BIH3, ny=N_BIH3, nz=N_BIH3, M=M3D, n_colloc=C3D,
+             dtype="float32", fem_dtype="float64", precond="mg",
+             backend=b), device=device),
+         lambda s: (linf(H3.evaluate_3d, s.u, p3.exact, pts3),
+                    linf(H3.evaluate_3d, s.v, p3.exact_lap, pts3))),
+    ]
+    spans = H1.SPANS + H2.SPANS + H3.SPANS + BH.SPANS
+    counts = {}
+    for label, mod, kname, solve, linfs in runs:
+        mod.reset_launch_counts()
+        sol, solve_s = timed(lambda: solve("cuda"))
+        launched = mod.launch_counts()[kname]
+        check(launched == 2, f"{label}: {launched} launches of {kname}, "
+              f"expected 2 (one a stage)")
+        counts[kname] = launched
+        for stage in (sol.v, sol.u):
+            check(bool(torch.isfinite(stage.coeffs).all()),
+                  f"{label}: non-finite coefficients")
+            check(bool(stage.solve_ok.all()), f"{label}: "
+                  f"{int((~stage.solve_ok).sum())} elements fell back")
+        lu, lv = linfs(sol)
+        check(lu < GATES_BIH[label], f"{label}: Linf {lu} >= gate "
+              f"{GATES_BIH[label]}")
+        tsol, torch_s = timed(lambda: solve("torch"))
+        tlu, tlv = linfs(tsol)
+        agree, scale = {}, {}
+        for st in ("v", "u"):
+            a, b = getattr(sol, st).coeffs, getattr(tsol, st).coeffs
+            agree[st], scale[st] = max_err(a, b), float(b.abs().max())
+            check(agree[st] < ROUTE_REL * scale[st], f"{label}: {st}-stage "
+                  f"coefficients, kernel against torch route: {agree[st]} "
+                  f">= {ROUTE_REL} x {scale[st]}")
+        rec = dict(run=label, solve_s=solve_s, launched=launched,
+                   linf_u=lu, linf_v=lv, gate=GATES_BIH[label],
+                   torch_route_solve_s=torch_s, torch_route_linf_u=tlu,
+                   torch_route_linf_v=tlv, kernel_vs_torch_max_abs=agree,
+                   coeff_scale=scale)
+        if label != "biharmonic_1d":
+            rec["cg_iters"] = [sol.v.cg_iters, sol.u.cg_iters]
+            del tsol
+            torch.cuda.empty_cache()
+            wall, busy, ops, prof_s = profiled_busy(lambda: solve("cuda"),
+                                                    spans)
+            rec.update(profiled_wall_ms=wall, device_busy_ms=busy,
+                       device_idle_share=1.0 - busy / (solve_s * 1e3),
+                       device_ops=ops, profile_s=prof_s)
+        emit("main_path_biharmonic", **rec)
+        del sol
+        torch.cuda.empty_cache()
+    emit("launch_counts_biharmonic", **counts)
+    return counts
+
+
+def phase_main_path_clamped(device="cuda"):
+    """The clamped beam (solve_clamped_biharmonic_1d, clamped_sin2_1d at
+    E = 1,024, M = 10, C = 12) and the clamped BFS plate
+    (solve_clamped_biharmonic_2d, clamped_sin2_2d at 64^2, M = C = 10),
+    float64 on the torch route: solve_ok, the nodal Hermite values and
+    slopes, Linf within its gate, the plate's Jacobi-CG count within its."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch import Solver2DConfig, SolverConfig
+    from hybrid_fem_lssvr_tpu_torch.models import biharmonic as BH
+    from hybrid_fem_lssvr_tpu_torch.ops import eval as ops_eval
+
+    pb = BH.clamped_sin2_1d()
+    sol, solve_s = timed(lambda: BH.solve_clamped_biharmonic_1d(
+        pb, SolverConfig(num_nodes=E_BEAM + 1, M=10, n_colloc=12,
+                         dtype="float64"), device=device))
+    x = torch.linspace(-1.0, 1.0, DENSE_POINTS, dtype=torch.float64,
+                       device=device)
+    linf = float((ops_eval.evaluate(sol.nodes, sol.coeffs, x)
+                  - pb.exact(x)).abs().max())
+    nodal = float((sol.u_nodal - pb.exact(sol.nodes)).abs().max())
+    slope = float((sol.up_nodal - pb.exact_d1(sol.nodes)).abs().max())
+    check(bool(sol.solve_ok.all()), "beam: elements fell back")
+    check(linf < GATES_CLAMPED["beam"], f"beam: Linf {linf} >= gate "
+          f"{GATES_CLAMPED['beam']}")
+    emit("main_path_clamped", run="beam", E=E_BEAM, M=10, C=12,
+         solve_s=solve_s, linf=linf, nodal_linf=nodal, slope_linf=slope,
+         max_slack=float(sol.max_slack.max()), gate=GATES_CLAMPED["beam"])
+    pp = BH.clamped_sin2_2d()
+    sol, solve_s = timed(lambda: BH.solve_clamped_biharmonic_2d(
+        pp, Solver2DConfig(nx=N_PLATE, ny=N_PLATE, M=M_PLATE,
+                           n_colloc=M_PLATE, dtype="float64",
+                           cg_maxiter=PLATE_CG_MAXITER), device=device))
+    pts = tuple(v.to(device=device, dtype=torch.float64)
+                for v in points_2d())
+    linf = float((BH.evaluate_clamped_2d(sol, *pts) - pp.exact(*pts))
+                 .abs().max())
+    X, Y = torch.meshgrid(sol.xs, sol.ys, indexing="xy")
+    nodal = float((sol.u_nodal[..., 0] - pp.exact(X, Y)).abs().max())
+    check(bool(sol.solve_ok.all()), "plate: elements fell back")
+    check(sol.cg_iters < PLATE_CG_GATE, f"plate: {sol.cg_iters} CG "
+          f"iterations >= gate {PLATE_CG_GATE}")
+    check(linf < GATES_CLAMPED["plate"], f"plate: Linf {linf} >= gate "
+          f"{GATES_CLAMPED['plate']}")
+    emit("main_path_clamped", run="plate", n=N_PLATE, M=M_PLATE,
+         solve_s=solve_s, linf=linf, nodal_linf=nodal,
+         cg_iters=sol.cg_iters, cg_gate=PLATE_CG_GATE,
+         cg_residual=float(sol.cg_residual), gate=GATES_CLAMPED["plate"])
+
+
+def phase_main_path_eigen(device="cuda", gate_basis=False):
+    """hybrid_eigensolve (poisson_1d, 1,025 nodes, float32, k = 4: the
+    shifted enhancement through fused_enhance_shared, k rq_iters launches),
+    hybrid_eigensolve_2d_mixed (poisson_2d, 256^2, k = 2) and _3d_mixed
+    (poisson_3d, 32^3, k = 1) with trace_lift = 0 (the stacked kernels, k
+    rq_iters launches), each gated on max |lambda - exact|; the counts are
+    read right after each.  Then on the same pencil: each 1D pair's
+    enhancement on both routes; the mixed enhancement rounds on the torch
+    route and with trace_lift = 6.  ``gate_basis`` also runs the whole 1D
+    eigensolve on the torch route.  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch import (Solver2DConfig, Solver3DConfig,
+                                            SolverConfig, problems)
+    from hybrid_fem_lssvr_tpu_torch.models import eigen as EG
+    from hybrid_fem_lssvr_tpu_torch.models.hybrid2d import poisson_2d
+    from hybrid_fem_lssvr_tpu_torch.models.hybrid3d import poisson_3d
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels as K
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d as K2
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels3d as K3
+
+    def lam_err(sol, exact):
+        return float(np.abs(sol.lams.cpu().numpy() - exact).max())
+
+    def held(label, sol, exact):
+        err = lam_err(sol, exact)
+        check(bool(torch.isfinite(sol.coeffs).all()), f"{label}: non-finite")
+        check(bool(sol.solve_ok.all()), f"{label}: elements fell back")
+        check(err < GATES_EIG[label], f"{label}: max |lambda - exact| "
+              f"{err} >= gate {GATES_EIG[label]}")
+        return err
+
+    counts = {}
+    p1 = problems.poisson_1d()
+    ec1 = EG.EigenConfig(k=4)
+    cfg1 = SolverConfig(num_nodes=N_EIG1, M=M, n_colloc=C, dtype="float32")
+    ex1 = EG.exact_eigenvalues(p1, ec1.k)
+    K.reset_launch_counts()
+    sol, solve_s = timed(lambda: EG.hybrid_eigensolve(
+        p1, dataclasses.replace(cfg1, backend="cuda"), ec1, device=device))
+    name = "fused_enhance_shared"
+    launched = K.launch_counts()[name]
+    check(launched == ec1.k * ec1.rq_iters, f"eigen_1d: {launched} "
+          f"launches of {name}")
+    counts[name] = launched
+    err = held("eigen_1d", sol, ex1)
+    agree = 0.0
+    for j in range(ec1.k):
+        u, lam = sol.fem.vectors[:, j], float(sol.fem.lams[j])
+        w = [EG.enhance_eigenpair(p1, sol.fem.nodes, lam, u,
+                                  dataclasses.replace(cfg1, backend=b))[0]
+             for b in ("cuda", "torch")]
+        scale = float(w[1].abs().max())
+        agree = max(agree, max_err(*w) / scale)
+    check(agree < ROUTE_REL, f"eigen_1d: enhancement, kernel against torch "
+          f"route: {agree} of the coefficients' size >= {ROUTE_REL}")
+    rec = dict(run="eigen_1d", N=N_EIG1, k=ec1.k, solve_s=solve_s,
+               launched=launched, lams=sol.lams.tolist(), max_err=err,
+               fem_max_err=lam_err(sol.fem, ex1), gate=GATES_EIG["eigen_1d"],
+               kernel_vs_torch_enhance_max_rel=agree)
+    if gate_basis:
+        tsol, torch_s = timed(lambda: EG.hybrid_eigensolve(
+            p1, dataclasses.replace(cfg1, backend="torch"), ec1,
+            device=device))
+        rec.update(torch_route_solve_s=torch_s,
+                   torch_route_max_err=lam_err(tsol, ex1))
+    emit("main_path_eigen", **rec)
+
+    mixed = [
+        ("eigen_2d_mixed", K2, "fused_enhance_stacked_2d", poisson_2d(),
+         Solver2DConfig(nx=N_EIG2, ny=N_EIG2, M=M2D, n_colloc=C2D,
+                        dtype="float32"),
+         EG.EigenConfig(k=2, iters=EIG_ITERS["2d"], trace_lift=0),
+         EG.hybrid_eigensolve_2d_mixed, EG._enhance_pairs_2d,
+         EG.exact_eigenvalues_2d),
+        ("eigen_3d_mixed", K3, "fused_enhance_stacked_3d", poisson_3d(),
+         Solver3DConfig(nx=N_EIG3, ny=N_EIG3, nz=N_EIG3, M=M3D,
+                        n_colloc=C3D, dtype="float32"),
+         EG.EigenConfig(k=1, iters=EIG_ITERS["3d"], oversample=1,
+                        trace_lift=0),
+         EG.hybrid_eigensolve_3d_mixed, EG._enhance_pairs_3d,
+         EG.exact_eigenvalues_3d),
+    ]
+    for label, mod, name, p, cfg, ec, solve, pairs, exact in mixed:
+        ex = exact(p, ec.k)
+        mod.reset_launch_counts()
+        sol, solve_s = timed(lambda: solve(p, cfg, ec, device=device))
+        launched = mod.launch_counts()[name]
+        check(launched == ec.k * ec.rq_iters, f"{label}: {launched} "
+              f"launches of {name}")
+        counts[name] = launched
+        err = held(label, sol, ex)
+        ksol, kernel_s = timed(lambda: pairs(p, cfg, ec, sol.fem, True))
+        tsol, torch_s = timed(lambda: pairs(
+            p, dataclasses.replace(cfg, backend="torch"), ec, sol.fem, True))
+        lsol, lift_s = timed(lambda: pairs(
+            p, cfg, dataclasses.replace(ec, trace_lift=6), sol.fem, True))
+        lift_err = held(f"{label}/lift6", lsol, ex)
+        lam_agree = max_err(sol.lams, tsol.lams)
+        lam_scale = float(tsol.lams.abs().max())
+        coeff_agree = max_err(ksol.coeffs, tsol.coeffs)
+        coeff_scale = float(tsol.coeffs.abs().max())
+        check(lam_agree < ROUTE_LAMS_REL * lam_scale, f"{label}: "
+              f"eigenvalues, kernel against torch route: {lam_agree}")
+        check(coeff_agree < ROUTE_REL * coeff_scale, f"{label}: "
+              f"coefficients, kernel against torch route: {coeff_agree}")
+        emit("main_path_eigen", run=label, n=cfg.nx, k=ec.k,
+             iters=ec.iters, solve_s=solve_s, launched=launched,
+             lams=sol.lams.tolist(), max_err=err,
+             fem_max_err=lam_err(sol.fem, ex),
+             fem_residuals=sol.fem.residuals.tolist(),
+             gate=GATES_EIG[label], kernel_enhance_s=kernel_s,
+             torch_route_enhance_s=torch_s,
+             torch_route_max_err=lam_err(tsol, ex),
+             kernel_vs_torch_lams_max_abs=lam_agree,
+             kernel_vs_torch_max_abs=coeff_agree, coeff_scale=coeff_scale,
+             lift6_enhance_s=lift_s, lift6_max_err=lift_err,
+             lift6_gate=GATES_EIG[f"{label}/lift6"])
+        del sol, ksol, tsol, lsol
+        torch.cuda.empty_cache()
+    emit("launch_counts_eigen", **counts)
+    return counts
+
+
 IDENTITY_CHILD = r"""
 import functools, json, sys
 import torch
@@ -2854,6 +3234,16 @@ def main():
         torch.cuda.empty_cache()
     phase_stages_families()
     phase_main_path_nonlinear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for phase in (phase_main_path_biharmonic,
+                  functools.partial(phase_main_path_eigen,
+                                    gate_basis=gate_basis)):
+        for kname, n in phase().items():
+            counts[kname] += n
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    phase_main_path_clamped()
     torch.cuda.synchronize()
 
     check(sorted(summary) == sorted(KERNELS), f"kernels checked: "

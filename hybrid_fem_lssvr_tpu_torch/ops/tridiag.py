@@ -256,3 +256,35 @@ def matvec(a, b, c, x) -> torch.Tensor:
     dn = torch.cat([zero_row, x2[:-1]])
     y = b[:, None] * x2 + c[:, None] * up + a[:, None] * dn
     return y[:, 0] if squeeze else y
+
+
+def block_thomas_2x2(L, D, U, rhs):
+    """Block-tridiagonal solve with 2x2 blocks: block Thomas elimination
+    with closed-form 2x2 inverses (JAX ``tridiag.block_thomas_2x2``).
+
+    The 1D Hermite-cubic system of the clamped beam
+    (``models/biharmonic.py``) is block-tridiagonal with two dofs (value,
+    slope) a node; its blocks are SPD after the Dirichlet elimination, so
+    unpivoted block elimination is stable.  JAX's two ``lax.scan``s are a
+    Python loop over rows each, as in ``_thomas_batched``; the closed-form
+    inverse is what the function computes, and keeps the arithmetic the
+    tests compare.
+
+    L, D, U: [N, 2, 2] (L[0] and U[-1] ignored); rhs: [N, 2] -> x [N, 2].
+    """
+    n = D.shape[0]
+    Cp = torch.zeros(2, 2, dtype=D.dtype, device=D.device)
+    Dp = torch.zeros(2, dtype=D.dtype, device=D.device)
+    Cs, Ds = [], []
+    for i in range(n):
+        Si = _inv2(D[i] - L[i] @ Cp)
+        Cp = Si @ U[i]
+        Dp = Si @ (rhs[i] - L[i] @ Dp)
+        Cs.append(Cp)
+        Ds.append(Dp)
+    x = torch.zeros_like(Dp)
+    xs = [None] * n
+    for i in reversed(range(n)):
+        x = Ds[i] - Cs[i] @ x
+        xs[i] = x
+    return torch.stack(xs)

@@ -8,7 +8,9 @@ parts of the 2D and 3D per-element solves) and ``Graded2DOperators`` and
 ``Graded3DOperators`` (the reference parts of the graded 2D and 3D
 solves).  The elasticity bundles (2D and
 3D) pair a ``SharedOperators`` with their collocation and trace points
-(``elastic_bundle_from_arrays``).  Their JAX counterparts are converted
+(``elastic_bundle_from_arrays``), the clamped beam and plate bundles with
+their collocation points and, for the plate, its trace matrix
+(``clamped_bundle_from_arrays``).  Their JAX counterparts are converted
 field by field, through a dict of numpy arrays made with ``np.asarray`` on
 each field, e.g.
 
@@ -108,3 +110,21 @@ def elastic_bundle_from_arrays(arrays: dict, t_int, pts, device=None,
     arrays as the port's precompute returns them."""
     return (shared_operators_from_arrays(arrays, device, dtype),
             (np.asarray(t_int, np.float64), np.asarray(pts, np.float64)))
+
+
+def clamped_bundle_from_arrays(arrays: dict, t_int, T_all=None, device=None,
+                               dtype=torch.float64):
+    """The port's clamped-biharmonic bundle from the JAX package's
+    ``prepare_shared_clamped`` (1D: ``(shared, t_int)``) or
+    ``prepare_shared_clamped_2d`` (2D: ``(shared, t_int, T_all)``) output
+    given as numpy arrays: the operator fields keyed by name, the
+    collocation points ``t_int`` [C] (kept as a host float64 array, as the
+    port's precompute returns it) and the plate's BFS trace matrix
+    ``T_all`` [8M-4, 16] (a tensor on ``device`` in ``dtype``).  Float64 is
+    the default: the clamped solvers refuse float32."""
+    shared = shared_operators_from_arrays(arrays, device, dtype)
+    t_int = np.array(t_int, np.float64)
+    if T_all is None:
+        return shared, t_int
+    return shared, t_int, torch.tensor(np.asarray(T_all), dtype=dtype,
+                                       device=device)

@@ -44,8 +44,10 @@ hexes; two launches a chain, each chain also on the torch route, the plate
 and the box once more under torch.profiler), the eigensolves (1D at 1,025
 nodes through fused_enhance_shared, the mixed 2D route at 256^2 and 3D at
 32^3 through the stacked kernels, each also on the torch route and with a
-lifted trace on the same pencil) and the clamped beam (E = 1,024) and
-plate (64^2) in float64.
+lifted trace on the same pencil), the clamped beam (E = 1,024) and plate
+(64^2) in float64, and the 1D and 2D time marches (heat, wave, semilinear
+and adaptive-step; 2^20 elements and 1024^2 quads, float64, no kernel),
+with a kill-and-resume of a checkpointed march at 2^20.
 
 Each phase prints one JSON line.  The last lines are the kernel summary,
 the card's name and power limit as nvidia-smi reports them, and
@@ -3105,6 +3107,353 @@ def phase_main_path_eigen(device="cuda", gate_basis=False):
     return counts
 
 
+# ------------------------------------------------------ transient phase
+
+# The time marches (models/transient.py), all in float64: a float32 1D
+# march at 2^20 elements loses its answer as the float32 steady coarse
+# solve does (bench.py:105-109), and a float32 2D march stops each CG
+# solve at 100 float32 eps, far above the march's own error.  1D at 2^20
+# elements (M = 8, C = 12), 2D at 1024^2 quads (M = C = 6).  Each march
+# takes TR_STEPS steps of DT_TR = 2^-9, a step a march on the 1024^2
+# mesh (h = 2^-9) would take, so t_final = 1/32: the depth is cut, not
+# the step.  The adaptive marches run TR_ATTEMPTS attempts towards the
+# same t_final from their default first step t_final/64.  The small runs
+# held against the CPU: 33 nodes and 16^2 quads, 16 steps to t = 0.25.
+E_TR = 1 << 20
+N_TR = 1024
+TR_STEPS = 16
+DT_TR = 2.0 ** -9
+TR_ATTEMPTS = 32
+TR_CHUNK = TR_STEPS // 4  # the kill-and-resume run's chunk
+TR_CG_MAXITER = 40000
+# Linf against the exact solution at t_final (the enhanced polynomials'
+# on the dense grid or POINTS_2D random points where a march has them,
+# else the nodal values'), 10x the card's own (NVIDIA H100 80GB HBM3,
+# 700.00 W: 7.82e-7, 1.03e-6, 7.93e-7, 3.02e-8, 3.02e-8, 3.45e-6,
+# 3.45e-6; 1.27e-6, 7.29e-9, 1.21e-7, 1.21e-7, 1.50e-6, 1.50e-6; the
+# adaptive 6.88e-9, 1.25e-6).
+GATES_TR = {
+    "fem_march": 7.8e-6,
+    "fem_march/robin": 1.0e-5,
+    "hybrid_march": 7.9e-6,
+    "wave_march": 3.0e-7,
+    "hybrid_wave_march": 3.0e-7,
+    "fem_march_semilinear": 3.5e-5,
+    "hybrid_march_semilinear": 3.5e-5,
+    "fem_march_2d": 1.3e-5,
+    "hybrid_march_2d": 7.3e-8,
+    "wave_march_2d": 1.2e-6,
+    "hybrid_wave_march_2d": 1.2e-6,
+    "fem_march_semilinear_2d": 1.5e-5,
+    "hybrid_march_semilinear_2d": 1.5e-5,
+    "fem_march_adaptive": 6.9e-8,
+    "fem_march_adaptive_2d": 1.2e-5,
+}
+# The enhanced 1D CN march rides its nodal error (tests/test_transient.py
+# :72-89): Linf within HYBRID_FLOOR times the nodal Linf.
+HYBRID_FLOOR = 3.0
+# GPU against CPU at the small size, float64: nodal values and velocities
+# within TR_NODAL_REL of their size, coefficients within TR_COEFF_REL.
+TR_NODAL_REL = 1e-12
+TR_COEFF_REL = 1e-9
+
+
+class _Killed(Exception):
+    """The simulated kill of the kill-and-resume run."""
+
+
+def transient_runs():
+    """(label, march, problem, mass, keyword arguments) of the phase."""
+    return [
+        ("fem_march", "fem_march", "heat_1d", "consistent", {}),
+        ("fem_march/robin", "fem_march", "heat_robin_1d", "consistent", {}),
+        ("hybrid_march", "hybrid_march", "heat_1d", "numerov", {}),
+        ("wave_march", "wave_march", "wave_1d", "numerov", {}),
+        ("hybrid_wave_march", "hybrid_wave_march", "wave_1d", "numerov",
+         {}),
+        ("fem_march_semilinear", "fem_march_semilinear",
+         "semilinear_heat_1d", "numerov", {}),
+        ("hybrid_march_semilinear", "hybrid_march_semilinear",
+         "semilinear_heat_1d", "numerov", {}),
+        ("fem_march_2d", "fem_march_2d", "heat_2d", "consistent", {}),
+        ("hybrid_march_2d", "hybrid_march_2d", "heat_2d", "numerov",
+         {"trace_lift": 6}),
+        ("wave_march_2d", "wave_march_2d", "wave_2d", "numerov", {}),
+        ("hybrid_wave_march_2d", "hybrid_wave_march_2d", "wave_2d",
+         "numerov", {"trace_lift": 6}),
+        ("fem_march_semilinear_2d", "fem_march_semilinear_2d",
+         "semilinear_heat_2d", "numerov", {}),
+        ("hybrid_march_semilinear_2d", "hybrid_march_semilinear_2d",
+         "semilinear_heat_2d", "numerov", {"trace_lift": 6}),
+        ("fem_march_adaptive", "fem_march_adaptive", "heat_1d", None, {}),
+        ("fem_march_adaptive_2d", "fem_march_adaptive_2d", "heat_2d", None,
+         {}),
+    ]
+
+
+def transient_call(run, device, small=False):
+    """One march of ``transient_runs`` through its public function:
+    (problem, config, march config or None, solution, nodal velocity or
+    None, adaptive result or None)."""
+    from hybrid_fem_lssvr_tpu_torch import Solver2DConfig, SolverConfig
+    from hybrid_fem_lssvr_tpu_torch.models import transient as TR
+
+    _, march, prob, mass, kw = run
+    problem = getattr(TR, prob)()
+    if march.endswith("_2d"):
+        n = 16 if small else N_TR
+        cfg = Solver2DConfig(nx=n, ny=n, M=M2D, n_colloc=C2D,
+                             dtype="float64", cg_maxiter=TR_CG_MAXITER)
+    else:
+        cfg = SolverConfig(num_nodes=(33 if small else E_TR + 1), M=M,
+                           n_colloc=C, gamma=1e4, dtype="float64")
+    steps = 16 if small else TR_STEPS
+    t_final = 0.25 if small else TR_STEPS * DT_TR
+    if mass is None:  # adaptive: the attempt budget, default tolerance
+        res = getattr(TR, march)(problem, cfg, t_final=t_final,
+                                 max_attempts=(steps if small
+                                               else TR_ATTEMPTS),
+                                 device=device)
+        return problem, cfg, None, res.solution, None, res
+    tcfg = TR.TransientConfig(t_final=t_final, n_steps=steps, mass=mass)
+    out = getattr(TR, march)(problem, cfg, tcfg, device=device, **kw)
+    sol, vel = (out if "wave" in march else (out, None))
+    return problem, cfg, tcfg, sol, vel, None
+
+
+def timed_steps(fn):
+    """(fn(), seconds of the whole call, seconds of the first step,
+    seconds of the steps after it): the march loop (utils.checkpoint.scan,
+    which every march runs) is timed with the card synchronised before its
+    first step, after it and after the last, so the call's set-up, initial
+    fit and result fall outside it and the later steps overlap as they do
+    in a plain run."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch.utils import checkpoint as CK
+
+    orig, marks = CK.scan, []
+
+    def scan(step_fn, carry, ts):
+        n, i = int(ts.shape[0]), [0]
+
+        def step(c, t):
+            if i[0] == 0:
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+            out = step_fn(c, t)
+            i[0] += 1
+            if i[0] in (1, n):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+            return out
+
+        return orig(step, carry, ts)
+
+    CK.scan = scan
+    try:
+        out, whole = timed(fn)
+    finally:
+        CK.scan = orig
+    return out, whole, marks[1] - marks[0], marks[2] - marks[1]
+
+
+def transient_errors(problem, sol, t, dense, pts2):
+    """(nodal Linf, enhanced Linf or None) against problem.exact at t."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch.models.hybrid2d import (Solution2D,
+                                                            evaluate_2d)
+    from hybrid_fem_lssvr_tpu_torch.ops import eval as ops_eval
+
+    if hasattr(sol, "nodes"):
+        nodal = float((sol.fem_values - problem.exact(sol.nodes, t))
+                      .abs().max())
+        if sol.coeffs is None:
+            return nodal, None
+        u = ops_eval.evaluate(sol.nodes, sol.coeffs, dense)
+        return nodal, float((u - problem.exact(dense, t)).abs().max())
+    Y, X = torch.meshgrid(sol.ys, sol.xs, indexing="ij")
+    nodal = float((sol.fem_values - problem.exact(X, Y, t)).abs().max())
+    if sol.coeffs is None:
+        return nodal, None
+    z = torch.zeros((), dtype=sol.fem_values.dtype, device=dense.device)
+    s2 = Solution2D(sol.xs, sol.ys, sol.fem_values, sol.coeffs, 0, z, z, z,
+                    z)
+    u = evaluate_2d(s2, *pts2)
+    return nodal, float((u - problem.exact(*pts2, t)).abs().max())
+
+
+def rel_diff(a, b):
+    return float((a - b.to(a.device)).abs().max()
+                 / b.abs().max().clamp(min=1e-300))
+
+
+def phase_main_path_transient(device="cuda"):
+    """Every 1D and 2D time march through its public function on the card
+    at full width (1D 2^20 elements, 2D 1024^2 quads, float64, TR_STEPS
+    steps of 2^-9): finite values, Linf against the exact solution within
+    its gate, the enhanced 1D CN march within HYBRID_FLOOR of its nodal
+    error, every CG solve converged; each march once more at a small size
+    on the card and on the CPU, to round-off; hybrid_march at 2^20 killed
+    after its second checkpoint chunk and resumed, bit for bit the
+    uninterrupted checkpointed run and the plain run; hybrid_march and
+    hybrid_march_2d under torch.profiler for the device's busy share.
+    Each full-width march reports its whole call, its step loop, the rest
+    of the call (set-up, initial fit, result), its first step and the mean
+    of the steps after it.  No march launches
+    a hand-written kernel: the nine wrappers' counts stay 0."""
+    import tempfile
+
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch.models import hybrid as H1
+    from hybrid_fem_lssvr_tpu_torch.models import hybrid2d as H2
+    from hybrid_fem_lssvr_tpu_torch.models import transient as TR
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels as K
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d as K2
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d_elastic as KE
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d_graded as KG
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels3d as K3
+    from hybrid_fem_lssvr_tpu_torch.utils import checkpoint as CK
+
+    mods = (K, K2, KG, K3, KE)
+    for mod in mods:
+        mod.reset_launch_counts()
+    dense = torch.linspace(-1.0, 1.0, DENSE_POINTS, dtype=torch.float64,
+                           device=device)
+    pts2 = tuple(v.to(device=device, dtype=torch.float64)
+                 for v in points_2d())
+    spans = TR.SPANS + H1.SPANS + H2.SPANS
+    kept = {}
+    for run in transient_runs():
+        label, march = run[0], run[1]
+        (problem, cfg, tcfg, sol, vel, res), solve_s, first_s, later_s = \
+            timed_steps(lambda: transient_call(run, device))
+        n = TR_STEPS if res is None else TR_ATTEMPTS
+        t_end = float(res.t_reached) if res is not None else sol.t_final
+        check(bool(torch.isfinite(sol.fem_values).all())
+              and (sol.coeffs is None
+                   or bool(torch.isfinite(sol.coeffs).all())),
+              f"{label}: non-finite values")
+        nodal, linf = transient_errors(problem, sol, t_end, dense, pts2)
+        err = nodal if linf is None else linf
+        loop_ms = (first_s + later_s) * 1e3
+        rec = dict(run=label, steps=n, solve_s=solve_s,
+                   setup_ms=solve_s * 1e3 - loop_ms, loop_ms=loop_ms,
+                   first_step_ms=first_s * 1e3,
+                   later_step_ms=later_s * 1e3 / (n - 1),
+                   nodal_linf=nodal, linf=linf, gate=GATES_TR.get(label))
+        if march.endswith("_2d"):
+            rec.update(n=N_TR, cg_iters=sol.cg_iters)
+            check(sol.cg_iters < TR_CG_MAXITER, f"{label}: a CG solve did "
+                  f"not converge in {TR_CG_MAXITER} iterations")
+        else:
+            rec.update(E=E_TR)
+        if res is None:
+            rec.update(dt=DT_TR, t_final=sol.t_final)
+        else:
+            rec.update(t_final=sol.t_final, t_reached=t_end,
+                       accepted=int(res.accepted),
+                       rejected=int(res.rejected),
+                       max_err=float(res.max_err))
+            check(abs(t_end - sol.t_final) < 1e-12, f"{label}: reached "
+                  f"t = {t_end} of {sol.t_final} in {TR_ATTEMPTS} "
+                  f"attempts")
+        if label == "hybrid_march":
+            check(linf < HYBRID_FLOOR * nodal + 1e-12, f"{label}: Linf "
+                  f"{linf} >= {HYBRID_FLOOR} x nodal {nodal}")
+            kept[label] = (problem, cfg, tcfg, sol)
+        check(label in GATES_TR and err < GATES_TR[label],
+              f"{label}: Linf {err} >= gate {GATES_TR.get(label)}")
+        emit("main_path_transient", **rec)
+        del sol, vel, res
+        torch.cuda.empty_cache()
+
+    # the same marches at a small size, on the card and on the CPU
+    worst = {}
+    for run in transient_runs():
+        _, _, _, g, gv, gres = transient_call(run, device, small=True)
+        _, _, _, c, cv, cres = transient_call(run, "cpu", small=True)
+        d = {"fem_values": rel_diff(c.fem_values, g.fem_values)}
+        if gv is not None:
+            d["velocity"] = rel_diff(cv, gv)
+        if g.coeffs is not None:
+            d["coeffs"] = rel_diff(c.coeffs, g.coeffs)
+        if gres is not None:
+            check(int(gres.accepted) == int(cres.accepted)
+                  and int(gres.rejected) == int(cres.rejected),
+                  f"{run[0]}: attempt counts differ on the CPU")
+        check(all(v < (TR_COEFF_REL if k == "coeffs" else TR_NODAL_REL)
+                  for k, v in d.items()), f"{run[0]}: GPU against CPU {d}")
+        worst[run[0]] = d
+    emit("transient_gpu_vs_cpu", nodal_tol=TR_NODAL_REL,
+         coeff_tol=TR_COEFF_REL, rel_diff=worst)
+
+    # kill-and-resume on the card: hybrid_march at 2^20
+    problem, cfg, tcfg, plain = kept["hybrid_march"]
+    with tempfile.TemporaryDirectory() as tmp:
+        whole_cfg = dataclasses.replace(
+            tcfg, checkpoint=os.path.join(tmp, "whole"),
+            checkpoint_chunk=TR_CHUNK)
+        whole, whole_s = timed(lambda: TR.hybrid_march(
+            problem, cfg, whole_cfg, device=device))
+        kill_cfg = dataclasses.replace(whole_cfg,
+                                       checkpoint=os.path.join(tmp, "kill"))
+        orig, writes = CK._write_march, [0]
+
+        def bomb(*a, **k):
+            orig(*a, **k)
+            writes[0] += 1
+            if writes[0] == 2:
+                raise _Killed
+
+        CK._write_march = bomb
+        killed = False
+        try:
+            TR.hybrid_march(problem, cfg, kill_cfg, device=device)
+        except _Killed:
+            killed = True
+        finally:
+            CK._write_march = orig
+        fp = CK.march_fingerprint(problem.name, cfg, kill_cfg,
+                                  "hybrid_march")
+        at = CK.load_march_state(kill_cfg.checkpoint, fp)[0]
+        check(killed and at == 2 * TR_CHUNK, f"kill: state at step {at}")
+        resumed, resume_s = timed(lambda: TR.hybrid_march(
+            problem, cfg, kill_cfg, device=device))
+        same = {
+            "resumed_vs_whole": torch.equal(resumed.coeffs, whole.coeffs)
+            and torch.equal(resumed.fem_values, whole.fem_values),
+            "whole_vs_plain": torch.equal(whole.coeffs, plain.coeffs)
+            and torch.equal(whole.fem_values, plain.fem_values)}
+        emit("transient_resume", run="hybrid_march", E=E_TR,
+             steps=TR_STEPS, chunk=TR_CHUNK, resumed_at=at,
+             checkpointed_s=whole_s, resumed_s=resume_s, bitwise=same)
+        check(all(same.values()), f"kill-and-resume: {same}")
+    del whole, resumed, plain, kept
+    torch.cuda.empty_cache()
+
+    # where a march spends its time
+    for run in (r for r in transient_runs()
+                if r[0] in ("hybrid_march", "hybrid_march_2d")):
+        _, solve_s = timed(lambda: transient_call(run, device))
+        wall, busy, ops, prof_s = profiled_busy(
+            lambda: transient_call(run, device), spans)
+        emit("stages_transient", run=run[0], steps=TR_STEPS,
+             solve_ms=solve_s * 1e3, profiled_wall_ms=wall,
+             device_busy_ms=busy,
+             device_idle_share=1.0 - busy / (solve_s * 1e3),
+             device_ops=ops, profile_s=prof_s)
+        torch.cuda.empty_cache()
+    launched = {}
+    for mod in mods:
+        launched.update(mod.launch_counts())
+    emit("launch_counts_transient", **launched)
+    check(not any(launched.values()), f"a march launched a kernel: "
+          f"{launched}")
+
+
 IDENTITY_CHILD = r"""
 import functools, json, sys
 import torch
@@ -3244,6 +3593,9 @@ def main():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     phase_main_path_clamped()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    phase_main_path_transient()
     torch.cuda.synchronize()
 
     check(sorted(summary) == sorted(KERNELS), f"kernels checked: "

@@ -11,9 +11,11 @@ the 2D structured-quad solver (``HybridSolver2D``), its graded-mesh variant
 linear elasticity in 2D and 3D (``ElasticSolver2D``, ``ElasticSolver3D``),
 parametric families solved as one batch (``solve_family``,
 ``solve_groups``), slack-driven and goal-oriented adaptivity
-(``adaptive_solve``, ``goal_adaptive_solve[_2d|_3d]``) and semilinear
-problems (``models.nonlinear``); the JAX package remains the reference for
-everything else.
+(``adaptive_solve``, ``goal_adaptive_solve[_2d|_3d]``), semilinear
+problems (``models.nonlinear``), the biharmonic and eigenvalue families
+(``models.biharmonic``, ``models.eigen``) and the 1D and 2D time marches
+with checkpointed resume (``models.transient``, ``utils.checkpoint``); the
+JAX package remains the reference for everything else.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; on a
 machine without a GPU they raise instead of falling back.

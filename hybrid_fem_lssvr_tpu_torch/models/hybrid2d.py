@@ -438,6 +438,18 @@ def _lift_weights(n_nodes: int, t_pts, stencil: int = 6):
     return idx, w
 
 
+@functools.lru_cache(maxsize=32)
+def _lift_tables(nx: int, ny: int, M: int, stencil: int):
+    """(idx_x, w_x, idx_y, w_y) of ``_lifted_trace_2d`` on an nx x ny
+    grid: ``_lift_weights`` along x at the M edge points and along y at the
+    inner M - 2, built once a shape (a time march lifts the same grid every
+    step; building them is a host loop over the elements).  Callers must
+    not write to the arrays."""
+    tb = np.linspace(-1.0, 1.0, M)
+    return (_lift_weights(nx + 1, tb, stencil)
+            + _lift_weights(ny + 1, tb[1:-1], stencil))
+
+
 def _lifted_trace_2d(fem, M: int, nx: int, ny: int, stencil: int = 6):
     """[E, 4M-4] element-edge trace values from high-order tangential
     interpolation of the nodal grid along each edge's grid line — replaces
@@ -446,9 +458,7 @@ def _lifted_trace_2d(fem, M: int, nx: int, ny: int, stencil: int = 6):
     ``coarse='compact'`` scheme).  Row order matches ``_boundary_coords``:
     bottom M points (ty=-1), top M, left tb[1:-1], right tb[1:-1]."""
     dtype, device = fem.dtype, fem.device
-    tb = np.linspace(-1.0, 1.0, M)
-    idxx, wxf = _lift_weights(nx + 1, tb, stencil)
-    idxy, wyi = _lift_weights(ny + 1, tb[1:-1], stencil)
+    idxx, wxf, idxy, wyi = _lift_tables(nx, ny, M, stencil)
     wx = torch.as_tensor(wxf, dtype=dtype, device=device)
     wy = torch.as_tensor(wyi, dtype=dtype, device=device)
     ix = torch.as_tensor(idxx, device=device)

@@ -975,3 +975,25 @@ def test_elastic_auto_route_and_default_device(dev):
                                  trace_lift=6)
     assert bool(ElasticSolver2D(p, lifted).solve().solve_ok.all())
     assert KE.launch_counts()["fused_enhance_elastic_2d"] == 0
+
+
+@pytest.mark.parametrize("kind", ["tensor", "number"])
+def test_fully_resumed_scan_outputs_stay_on_the_card(dev, tmp_path, kind):
+    """A checkpointed scan's per-step outputs lie on the carry's device
+    whether they were computed or every chunk came from disk (tensor
+    outputs and Python numbers, as the 2D marches' CG counts)."""
+    from hybrid_fem_lssvr_tpu_torch.utils import checkpoint as CK
+
+    def step(c, t):
+        c2 = c * (1.0 + 0.01 * t) + torch.sin(t + c[0])
+        return c2, torch.sum(c2) if kind == "tensor" else int(c2.numel())
+
+    c0 = torch.arange(5, dtype=torch.float64, device=dev)
+    ts = torch.linspace(0.0, 1.0, 24, dtype=torch.float64, device=dev)
+    ref_c, ref_y = CK.scan(step, c0, ts)
+    path = str(tmp_path / kind)
+    for _ in range(2):  # uninterrupted, then every chunk restored
+        c, y = CK.scan_checkpointed(step, c0, ts, path=path, chunk=6,
+                                    fingerprint="fp")
+        assert torch.equal(c, ref_c) and torch.equal(y, ref_y)
+        assert y.device == c.device == ref_y.device and y.is_cuda

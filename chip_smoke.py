@@ -45,9 +45,11 @@ and the box once more under torch.profiler), the eigensolves (1D at 1,025
 nodes through fused_enhance_shared, the mixed 2D route at 256^2 and 3D at
 32^3 through the stacked kernels, each also on the torch route and with a
 lifted trace on the same pencil), the clamped beam (E = 1,024) and plate
-(64^2) in float64, and the 1D and 2D time marches (heat, wave, semilinear
-and adaptive-step; 2^20 elements and 1024^2 quads, float64, no kernel),
-with a kill-and-resume of a checkpointed march at 2^20.
+(64^2) in float64, the 1D, 2D and 3D time marches (heat, wave,
+semilinear and adaptive-step; 2^20 elements, 1024^2 quads and 128^3 hexes,
+float64, no kernel), with a kill-and-resume of a checkpointed march at
+2^20, and the elastodynamics marches (2D at 1024^2 quads, 3D at 64^3
+hexes, float64, no kernel).
 
 Each phase prints one JSON line.  The last lines are the kernel summary,
 the card's name and power limit as nvidia-smi reports them, and
@@ -238,13 +240,19 @@ def busy_ms(events, skip=()):
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.name not in skip)
+    return union_ms(spans, 1e3)
+
+
+def union_ms(spans, per_ms):
+    """Milliseconds covered by the sorted (start, end) intervals, given in
+    units of 1/per_ms ms."""
     check(spans, "torch.profiler recorded no device activity")
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
             busy, lo = busy + hi - lo, a
         hi = max(hi, b)
-    return (busy + hi - lo) / 1e3
+    return (busy + hi - lo) / per_ms
 
 
 class IncompleteProfile(RuntimeError):
@@ -2801,8 +2809,10 @@ ROUTE_LAMS_REL = 1e-6
 def profiled_busy(run, skip):
     """(profiled wall ms, device-busy ms, device operations, seconds the
     profile took in all) of one run() under torch.profiler, recording the
-    device only (reading a trace of ~300k device operations with their
-    host events takes minutes)."""
+    device only.  The device records are read straight from the
+    profiler's kineto results, leaving out the device-side copies of user
+    spans (names in ``skip``): building ``prof.events()`` for a trace of
+    50,000 device operations takes ~20 s on the card's host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2812,11 +2822,12 @@ def profiled_busy(run, skip):
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    ops = sum(e.device_type == torch.autograd.DeviceType.CUDA
-              and e.name not in skip for e in events)
-    busy = busy_ms(events, skip=skip)
-    return wall, busy, ops, time.perf_counter() - t_all
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == cuda and e.name() not in skip)
+    busy = union_ms(spans, 1e6)
+    return wall, busy, len(spans), time.perf_counter() - t_all
 
 
 def timed(fn):
@@ -3200,7 +3211,13 @@ def transient_call(run, device, small=False):
 
     _, march, prob, mass, kw = run
     problem = getattr(TR, prob)()
-    if march.endswith("_2d"):
+    if march.endswith("_3d"):
+        from hybrid_fem_lssvr_tpu_torch import Solver3DConfig
+
+        n = N_TR3_SMALL if small else N3D
+        cfg = Solver3DConfig(nx=n, ny=n, nz=n, M=M3D, n_colloc=C3D,
+                             dtype="float64", cg_maxiter=TR_CG_MAXITER)
+    elif march.endswith("_2d"):
         n = 16 if small else N_TR
         cfg = Solver2DConfig(nx=n, ny=n, M=M2D, n_colloc=C2D,
                              dtype="float64", cg_maxiter=TR_CG_MAXITER)
@@ -3258,7 +3275,7 @@ def timed_steps(fn):
     return out, whole, marks[1] - marks[0], marks[2] - marks[1]
 
 
-def transient_errors(problem, sol, t, dense, pts2):
+def transient_errors(problem, sol, t, dense, pts2, pts3=None):
     """(nodal Linf, enhanced Linf or None) against problem.exact at t."""
     import torch
 
@@ -3266,6 +3283,22 @@ def transient_errors(problem, sol, t, dense, pts2):
                                                             evaluate_2d)
     from hybrid_fem_lssvr_tpu_torch.ops import eval as ops_eval
 
+    if hasattr(sol, "zs"):
+        from hybrid_fem_lssvr_tpu_torch.models.hybrid3d import (Solution3D,
+                                                                evaluate_3d)
+
+        X, Y, Z = (sol.xs[None, None, :], sol.ys[None, :, None],
+                   sol.zs[:, None, None])
+        nodal = float((sol.fem_values - problem.exact(X, Y, Z, t))
+                      .abs().max())
+        if sol.coeffs is None:
+            return nodal, None
+        z = torch.zeros((), dtype=sol.fem_values.dtype,
+                        device=pts3[0].device)
+        s3 = Solution3D(sol.xs, sol.ys, sol.zs, sol.fem_values, sol.coeffs,
+                        0, z, z, z, z)
+        u = evaluate_3d(s3, *pts3)
+        return nodal, float((u - problem.exact(*pts3, t)).abs().max())
     if hasattr(sol, "nodes"):
         nodal = float((sol.fem_values - problem.exact(sol.nodes, t))
                       .abs().max())
@@ -3297,34 +3330,21 @@ def phase_main_path_transient(device="cuda"):
     error, every CG solve converged; each march once more at a small size
     on the card and on the CPU, to round-off; hybrid_march at 2^20 killed
     after its second checkpoint chunk and resumed, bit for bit the
-    uninterrupted checkpointed run and the plain run; hybrid_march and
-    hybrid_march_2d under torch.profiler for the device's busy share.
-    Each full-width march reports its whole call, its step loop, the rest
-    of the call (set-up, initial fit, result), its first step and the mean
-    of the steps after it.  No march launches
-    a hand-written kernel: the nine wrappers' counts stay 0."""
+    uninterrupted checkpointed run and the plain run.  Each full-width
+    march reports its whole call, its step loop, the rest of the call
+    (set-up, initial fit, result), its first step and the mean of the
+    steps after it."""
     import tempfile
 
     import torch
 
-    from hybrid_fem_lssvr_tpu_torch.models import hybrid as H1
-    from hybrid_fem_lssvr_tpu_torch.models import hybrid2d as H2
     from hybrid_fem_lssvr_tpu_torch.models import transient as TR
-    from hybrid_fem_lssvr_tpu_torch.ops import kernels as K
-    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d as K2
-    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d_elastic as KE
-    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d_graded as KG
-    from hybrid_fem_lssvr_tpu_torch.ops import kernels3d as K3
     from hybrid_fem_lssvr_tpu_torch.utils import checkpoint as CK
 
-    mods = (K, K2, KG, K3, KE)
-    for mod in mods:
-        mod.reset_launch_counts()
     dense = torch.linspace(-1.0, 1.0, DENSE_POINTS, dtype=torch.float64,
                            device=device)
     pts2 = tuple(v.to(device=device, dtype=torch.float64)
                  for v in points_2d())
-    spans = TR.SPANS + H1.SPANS + H2.SPANS
     kept = {}
     for run in transient_runs():
         label, march = run[0], run[1]
@@ -3434,22 +3454,327 @@ def phase_main_path_transient(device="cuda"):
     del whole, resumed, plain, kept
     torch.cuda.empty_cache()
 
-    # where a march spends its time
-    for run in (r for r in transient_runs()
-                if r[0] in ("hybrid_march", "hybrid_march_2d")):
-        _, solve_s = timed(lambda: transient_call(run, device))
-        wall, busy, ops, prof_s = profiled_busy(
-            lambda: transient_call(run, device), spans)
-        emit("stages_transient", run=run[0], steps=TR_STEPS,
+
+# The 3D marches at the steady 3D path's full width, 128^3 hexes (M = C =
+# 4), float64, TR_STEPS steps of DT_TR (dt/h^2 = 8; TR_ATTEMPTS attempts
+# for the adaptive march); against the CPU at 6^3 (the lifted trace needs
+# six nodes a grid line).  The enhanced marches are gated through
+# evaluate_3d on POINTS_3D random points, the others on their nodal values.
+N_TR3_SMALL = 6
+# Linf at t_final, 10x the card's own (NVIDIA H100 80GB HBM3, 700.00 W:
+# 2.261e-4, 1.625e-8, 2.712e-7, 2.793e-7, 8.039e-7, 8.080e-7, 2.263e-4).
+GATES_TR3 = {
+    "fem_march_3d": 2.3e-3,
+    "hybrid_march_3d": 1.7e-7,
+    "wave_march_3d": 2.8e-6,
+    "hybrid_wave_march_3d": 2.8e-6,
+    "fem_march_semilinear_3d": 8.1e-6,
+    "hybrid_march_semilinear_3d": 8.1e-6,
+    "fem_march_adaptive_3d": 2.3e-3,
+}
+# The elastodynamics marches: 2D at 1024^2 quads (M = C = 6) and 3D at
+# 64^3 hexes (M = C = 4), the steady elastic phases' sizes, float64,
+# TR_STEPS steps of DT_TR; against the CPU at 16^2 and 4^3.  The enhanced
+# marches are gated through their evaluate functions on POINTS_2D /
+# POINTS_3D random points, the others on their nodal values (the larger
+# component's).  Linf at t_final, 10x the card's own (NVIDIA H100 80GB
+# HBM3, 700.00 W: 3.058e-7, 1.834e-5, 1.091e-4, 5.683e-3).
+N_EW3 = 64
+GATES_EW = {
+    "elastic_wave_march_2d": 3.1e-6,
+    "hybrid_elastic_wave_march_2d": 1.9e-4,
+    "elastic_wave_march_3d": 1.1e-3,
+    "hybrid_elastic_wave_march_3d": 5.7e-2,
+}
+# Newmark (1/4, 1/2) conserves the discrete energy when f = 0
+# (tests/test_elastic_wave.py:36-47): |energyN - energy0| / energy0 of
+# elastic_free_vibration_2d at 1024^2 within ENERGY_DRIFT.
+ENERGY_DRIFT = 1e-10
+
+
+def transient_3d_runs():
+    """(label, march, problem, mass, keyword arguments) of the 3D phase."""
+    return [
+        ("fem_march_3d", "fem_march_3d", "heat_3d", "consistent", {}),
+        ("hybrid_march_3d", "hybrid_march_3d", "heat_3d", "numerov",
+         {"trace_lift": 6}),
+        ("wave_march_3d", "wave_march_3d", "wave_3d", "numerov", {}),
+        ("hybrid_wave_march_3d", "hybrid_wave_march_3d", "wave_3d",
+         "numerov", {"trace_lift": 6}),
+        ("fem_march_semilinear_3d", "fem_march_semilinear_3d",
+         "semilinear_heat_3d", "numerov", {}),
+        ("hybrid_march_semilinear_3d", "hybrid_march_semilinear_3d",
+         "semilinear_heat_3d", "numerov", {"trace_lift": 6}),
+        ("fem_march_adaptive_3d", "fem_march_adaptive_3d", "heat_3d", None,
+         {}),
+    ]
+
+
+def march_record(label, n, steps, timing, peak_bytes, nodal, linf, gate,
+                 cg_iters):
+    """The phase line of one full-width march (``timed_steps``' numbers),
+    after checking its Linf gate and its CG solves."""
+    solve_s, first_s, later_s = timing
+    loop_ms = (first_s + later_s) * 1e3
+    err = nodal if linf is None else linf
+    check(gate is not None and err < gate,
+          f"{label}: Linf {err} >= gate {gate}")
+    check(cg_iters < TR_CG_MAXITER, f"{label}: a CG solve did not "
+          f"converge in {TR_CG_MAXITER} iterations")
+    return dict(run=label, n=n, steps=steps, solve_s=solve_s,
+                setup_ms=solve_s * 1e3 - loop_ms, loop_ms=loop_ms,
+                first_step_ms=first_s * 1e3,
+                later_step_ms=later_s * 1e3 / (steps - 1),
+                peak_gb=peak_bytes / 2**30, cg_iters=cg_iters,
+                nodal_linf=nodal, linf=linf, gate=gate)
+
+
+def timed_peak(fn):
+    """``timed_steps(fn)`` and the card's peak allocated bytes in it."""
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, whole, first, later = timed_steps(fn)
+    return out, (whole, first, later), torch.cuda.max_memory_allocated()
+
+
+def phase_main_path_transient_3d(device="cuda"):
+    """The seven 3D marches through their public functions on the card at
+    128^3 hexes (M = C = 4, float64, TR_STEPS steps of DT_TR, the
+    adaptive march TR_ATTEMPTS attempts): finite values, Linf at t_final
+    within GATES_TR3, every CG solve converged, the adaptive march at
+    t_final; set-up, first and later steps timed apart, and the card's
+    peak memory.  Each march once more at 6^3 on the card and on the CPU,
+    to round-off (the adaptive counts equal)."""
+    import torch
+
+    pts3 = tuple(v.to(device=device, dtype=torch.float64)
+                 for v in points_3d())
+    for run in transient_3d_runs():
+        label = run[0]
+        (problem, cfg, tcfg, sol, vel, res), timing, peak = timed_peak(
+            lambda: transient_call(run, device))
+        n = TR_STEPS if res is None else TR_ATTEMPTS
+        t_end = float(res.t_reached) if res is not None else sol.t_final
+        check(bool(torch.isfinite(sol.fem_values).all())
+              and (sol.coeffs is None
+                   or bool(torch.isfinite(sol.coeffs).all())),
+              f"{label}: non-finite values")
+        nodal, linf = transient_errors(problem, sol, t_end, None, None,
+                                       pts3)
+        rec = march_record(label, N3D, n, timing, peak, nodal, linf,
+                           GATES_TR3.get(label), sol.cg_iters)
+        if res is None:
+            rec.update(dt=DT_TR, t_final=sol.t_final)
+        else:
+            rec.update(t_final=sol.t_final, t_reached=t_end,
+                       accepted=int(res.accepted),
+                       rejected=int(res.rejected),
+                       max_err=float(res.max_err))
+            check(abs(t_end - sol.t_final) < 1e-12, f"{label}: reached "
+                  f"t = {t_end} of {sol.t_final} in {TR_ATTEMPTS} "
+                  f"attempts")
+        emit("main_path_transient_3d", **rec)
+        del sol, vel, res
+        torch.cuda.empty_cache()
+
+    worst = {}
+    for run in transient_3d_runs():
+        _, _, _, g, gv, gres = transient_call(run, device, small=True)
+        _, _, _, c, cv, cres = transient_call(run, "cpu", small=True)
+        d = {"fem_values": rel_diff(c.fem_values, g.fem_values)}
+        if gv is not None:
+            d["velocity"] = rel_diff(cv, gv)
+        if g.coeffs is not None:
+            d["coeffs"] = rel_diff(c.coeffs, g.coeffs)
+        if gres is not None:
+            check(int(gres.accepted) == int(cres.accepted)
+                  and int(gres.rejected) == int(cres.rejected),
+                  f"{run[0]}: attempt counts differ on the CPU")
+        check(all(v < (TR_COEFF_REL if k == "coeffs" else TR_NODAL_REL)
+                  for k, v in d.items()), f"{run[0]}: GPU against CPU {d}")
+        worst[run[0]] = d
+    emit("transient_3d_gpu_vs_cpu", n=N_TR3_SMALL, nodal_tol=TR_NODAL_REL,
+         coeff_tol=TR_COEFF_REL, rel_diff=worst)
+
+
+ELASTIC_WAVE_MARCHES = (
+    "elastic_wave_march_2d", "hybrid_elastic_wave_march_2d",
+    "elastic_wave_march_3d", "hybrid_elastic_wave_march_3d")
+
+
+def elastic_wave_call(march, device, small=False, problem=None):
+    """(problem, config, solution) of one elastodynamics march through its
+    public function."""
+    from hybrid_fem_lssvr_tpu_torch import ElasticConfig2D, ElasticConfig3D
+    from hybrid_fem_lssvr_tpu_torch.models import elastic_wave as EW
+    from hybrid_fem_lssvr_tpu_torch.models.transient import TransientConfig
+
+    if march.endswith("_2d"):
+        n = 16 if small else NE
+        cfg = ElasticConfig2D(nx=n, ny=n, M=M2D, n_colloc=C2D,
+                              dtype="float64", cg_maxiter=TR_CG_MAXITER)
+        problem = problem or EW.elastic_wave_2d()
+    else:
+        n = 4 if small else N_EW3
+        cfg = ElasticConfig3D(nx=n, ny=n, nz=n, M=M3D, n_colloc=C3D,
+                              dtype="float64", cg_maxiter=TR_CG_MAXITER)
+        problem = problem or EW.elastic_wave_3d()
+    tcfg = TransientConfig(t_final=0.25 if small else TR_STEPS * DT_TR,
+                           n_steps=16 if small else TR_STEPS)
+    return problem, cfg, getattr(EW, march)(problem, cfg, tcfg,
+                                             device=device)
+
+
+def elastic_wave_errors(problem, sol, pts):
+    """(nodal Linf, enhanced Linf or None) at t_final, the larger
+    component's."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch.models import elastic_wave as EW
+
+    t = sol.t_final
+    if hasattr(sol, "zs"):
+        grid = (sol.xs[None, None, :], sol.ys[None, :, None],
+                sol.zs[:, None, None])
+        exact = problem.exact
+        evaluate = EW.evaluate_elastic_wave_3d
+    else:
+        Y, X = torch.meshgrid(sol.ys, sol.xs, indexing="ij")
+        grid = (X, Y)
+        exact = (problem.exact1, problem.exact2)
+        evaluate = EW.evaluate_elastic_wave_2d
+    nodal = max(float((sol.fem_values[c] - ex(*grid, t)).abs().max())
+                for c, ex in enumerate(exact))
+    if sol.coeffs is None:
+        return nodal, None
+    u = evaluate(sol, *pts)
+    return nodal, max(float((u[c] - ex(*pts, t)).abs().max())
+                      for c, ex in enumerate(exact))
+
+
+def phase_main_path_elastic_wave(device="cuda"):
+    """The four elastodynamics marches through their public functions on
+    the card (2D at 1024^2, M = C = 6; 3D at 64^3, M = C = 4; float64,
+    TR_STEPS steps of DT_TR): finite values, Linf at t_final within
+    GATES_EW, the CG solves converged, set-up and steps timed apart with
+    the card's peak memory; elastic_free_vibration_2d at 1024^2, its
+    energy drift within ENERGY_DRIFT; each march once more at 16^2 / 4^3
+    on the card and on the CPU, to round-off."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch.models import elastic_wave as EW
+
+    pts = {"2d": tuple(v.to(device=device, dtype=torch.float64)
+                       for v in points_2d()),
+           "3d": tuple(v.to(device=device, dtype=torch.float64)
+                       for v in points_3d())}
+    for march in ELASTIC_WAVE_MARCHES:
+        (problem, cfg, sol), timing, peak = timed_peak(
+            lambda: elastic_wave_call(march, device))
+        check(bool(torch.isfinite(sol.fem_values).all())
+              and (sol.coeffs is None
+                   or bool(torch.isfinite(sol.coeffs).all())),
+              f"{march}: non-finite values")
+        nodal, linf = elastic_wave_errors(problem, sol, pts[march[-2:]])
+        rec = march_record(march, cfg.nx, TR_STEPS, timing, peak, nodal,
+                           linf, GATES_EW.get(march), sol.cg_iters)
+        emit("main_path_elastic_wave", **rec, dt=DT_TR, t_final=sol.t_final,
+             energy0=float(sol.energy0), energyN=float(sol.energyN))
+        del sol
+        torch.cuda.empty_cache()
+
+    (_, _, sol), solve_s = timed(lambda: elastic_wave_call(
+        "elastic_wave_march_2d", device,
+        problem=EW.elastic_free_vibration_2d()))
+    drift = abs(float(sol.energyN - sol.energy0)) / float(sol.energy0)
+    emit("main_path_elastic_wave", run="elastic_free_vibration_2d",
+         n=NE, steps=TR_STEPS, solve_s=solve_s, energy0=float(sol.energy0),
+         energyN=float(sol.energyN), energy_drift=drift,
+         drift_tol=ENERGY_DRIFT, cg_iters=sol.cg_iters)
+    check(drift <= ENERGY_DRIFT, f"free vibration: energy drift {drift}")
+    del sol
+    torch.cuda.empty_cache()
+
+    worst = {}
+    for march in ELASTIC_WAVE_MARCHES:
+        _, _, g = elastic_wave_call(march, device, small=True)
+        _, _, c = elastic_wave_call(march, "cpu", small=True)
+        d = {f: rel_diff(getattr(c, f), getattr(g, f))
+             for f in ("fem_values", "velocity", "energy0", "energyN")}
+        if g.coeffs is not None:
+            d["coeffs"] = rel_diff(c.coeffs, g.coeffs)
+        check(all(v < (TR_COEFF_REL if k == "coeffs" else TR_NODAL_REL)
+                  for k, v in d.items()), f"{march}: GPU against CPU {d}")
+        worst[march] = d
+    emit("elastic_wave_gpu_vs_cpu", n2d=16, n3d=4, nodal_tol=TR_NODAL_REL,
+         coeff_tol=TR_COEFF_REL, rel_diff=worst)
+
+
+def phase_stages_transient(device="cuda"):
+    """hybrid_march, hybrid_march_2d, hybrid_march_3d and
+    hybrid_elastic_wave_march_2d at full width under a device-only
+    torch.profiler: the device's busy ms and idle share of the call."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch.models import hybrid as H1
+    from hybrid_fem_lssvr_tpu_torch.models import hybrid2d as H2
+    from hybrid_fem_lssvr_tpu_torch.models import hybrid3d as H3
+    from hybrid_fem_lssvr_tpu_torch.models import transient as TR
+
+    spans = TR.SPANS + H1.SPANS + H2.SPANS + H3.SPANS
+    runs = [("transient", r) for r in transient_runs()
+            if r[0] in ("hybrid_march", "hybrid_march_2d")]
+    runs += [("transient", r) for r in transient_3d_runs()
+             if r[0] == "hybrid_march_3d"]
+    runs += [("elastic_wave", "hybrid_elastic_wave_march_2d")]
+    for kind, run in runs:
+        if kind == "transient":
+            label, call = run[0], functools.partial(transient_call, run,
+                                                    device)
+        else:
+            label, call = run, functools.partial(elastic_wave_call, run,
+                                                 device)
+        _, solve_s = timed(call)
+        wall, busy, ops, prof_s = profiled_busy(call, spans)
+        emit("stages_transient", run=label, steps=TR_STEPS,
              solve_ms=solve_s * 1e3, profiled_wall_ms=wall,
              device_busy_ms=busy,
              device_idle_share=1.0 - busy / (solve_s * 1e3),
              device_ops=ops, profile_s=prof_s)
         torch.cuda.empty_cache()
+
+
+def transient_phases(device="cuda"):
+    """The march phases, with the nine wrappers' counts set to 0 just
+    before them and read just after: no march runs a hand-written kernel,
+    as in the JAX package, so every count must stay 0."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels as K
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d as K2
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d_elastic as KE
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d_graded as KG
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels3d as K3
+
+    mods = (K, K2, KG, K3, KE)
+    for mod in mods:
+        mod.reset_launch_counts()
+    phases = (phase_main_path_transient, phase_main_path_transient_3d,
+              phase_main_path_elastic_wave, phase_stages_transient)
+    seconds = {}
+    for phase in phases:
+        t0 = time.perf_counter()
+        phase(device)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        seconds[phase.__name__] = time.perf_counter() - t0
     launched = {}
     for mod in mods:
         launched.update(mod.launch_counts())
-    emit("launch_counts_transient", **launched)
+    emit("launch_counts_transient", phases=[p.__name__ for p in phases],
+         phase_s=seconds, **launched)
     check(not any(launched.values()), f"a march launched a kernel: "
           f"{launched}")
 
@@ -3595,8 +3920,7 @@ def main():
     phase_main_path_clamped()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    phase_main_path_transient()
-    torch.cuda.synchronize()
+    transient_phases()
 
     check(sorted(summary) == sorted(KERNELS), f"kernels checked: "
           f"{sorted(summary)}")

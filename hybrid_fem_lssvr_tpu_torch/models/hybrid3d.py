@@ -324,6 +324,16 @@ def _surface_coords(M: int):
                      for iz, iy, ix in _surface_indices(M)])
 
 
+@functools.lru_cache(maxsize=32)
+def _lift_tables_3d(nx: int, ny: int, nz: int, M: int, stencil: int):
+    """((idx, w) along x, y, z) of ``_lifted_trace_3d``: ``_lift_weights``
+    at the M surface-grid points of each axis, built once a shape (a time
+    march lifts the same grid every step; building them is a host loop
+    over the elements).  Callers must not write to the arrays."""
+    tb = np.linspace(-1.0, 1.0, M)
+    return tuple(_lift_weights(n + 1, tb, stencil) for n in (nx, ny, nz))
+
+
 def _lifted_trace_3d(fem, M: int, nx: int, ny: int, nz: int,
                      stencil: int = 6):
     """[E, S] element surface-trace values from tensor-Lagrange
@@ -332,16 +342,10 @@ def _lifted_trace_3d(fem, M: int, nx: int, ny: int, nz: int,
     in-plane values come from two successive 1D lifts.  Row order matches
     ``_surface_coords``."""
     dtype, device = fem.dtype, fem.device
-    tb = np.linspace(-1.0, 1.0, M)
-
-    def lift(n):
-        idx, w = _lift_weights(n + 1, tb, stencil)
-        return (torch.as_tensor(idx, device=device),
-                torch.as_tensor(w, dtype=dtype, device=device))
-
-    idxx, wx = lift(nx)
-    idxy, wy = lift(ny)
-    idxz, wz = lift(nz)
+    (idxx, wx), (idxy, wy), (idxz, wz) = (
+        (torch.as_tensor(idx, device=device),
+         torch.as_tensor(w, dtype=dtype, device=device))
+        for idx, w in _lift_tables_3d(nx, ny, nz, M, stencil))
     Ax = torch.einsum("bmj,cabj->cabm", wx, fem[:, :, idxx])
     Axy = torch.einsum("amj,cajbn->cabmn", wy, Ax[:, idxy])  # z-face planes
     Axz = torch.einsum("cmj,cjabn->cabmn", wz, Ax[idxz])  # y-face planes
@@ -734,13 +738,15 @@ def fem_solve_3d(problem: Problem3D, cfg: Solver3DConfig, xs, ys, zs):
 
 
 def _element_data_3d(problem: Problem3D, cfg: Solver3DConfig, xs, ys, zs,
-                     fem_values, t_int, spts, trace_lift: int = 0):
+                     fem_values, t_int, spts, trace_lift: int = 0,
+                     skip_f: bool = False):
     """Per-element collocation rhs [E, C^3] (interior points) and
     boundary-trace values [E, S]: the trilinear FEM trace at the surface
     points, overridden by g on the Dirichlet faces of the domain (natural
     faces keep the FEM trace); ``trace_lift >= 2`` replaces the trilinear
     trace with the plane lift (``_lifted_trace_3d``).  Also returns the
-    eight corner-value views."""
+    eight corner-value views.  ``skip_f=True`` skips the collocation rows
+    (returned as None) for trace-only callers such as the time marches."""
     dtype, device = xs.dtype, xs.device
     C = cfg.n_colloc
     nx, ny, nz = xs.shape[0] - 1, ys.shape[0] - 1, zs.shape[0] - 1
@@ -752,11 +758,15 @@ def _element_data_3d(problem: Problem3D, cfg: Solver3DConfig, xs, ys, zs,
     zq = zs[:-1][:, None] + 0.5 * hz[:, None] * (t[None, :] + 1.0)
     # f on [nz, ny, nx, Cz, Cy, Cx]: rows (iz, iy, ix), columns (cz, cy, cx),
     # both row-major, as prepare_shared_3d's t3.
-    F = problem.f(xq[None, None, :, None, None, :],
-                  yq[None, :, None, None, :, None],
-                  zq[:, None, None, :, None, None])
-    F = F * torch.ones((nz, ny, nx, C, C, C), dtype=dtype, device=device)
-    f_rows = F.reshape(E, C * C * C)
+    if skip_f:
+        f_rows = None
+    else:
+        F = problem.f(xq[None, None, :, None, None, :],
+                      yq[None, :, None, None, :, None],
+                      zq[:, None, None, :, None, None])
+        F = F * torch.ones((nz, ny, nx, C, C, C), dtype=dtype,
+                           device=device)
+        f_rows = F.reshape(E, C * C * C)
 
     cs = assembly3d._corners_3d(fem_values)  # a = 4cz + 2cy + cx
     sp = torch.tensor(np.asarray(spts), dtype=dtype, device=device)
@@ -796,8 +806,9 @@ def _element_data_3d(problem: Problem3D, cfg: Solver3DConfig, xs, ys, zs,
         torch.logical_or,
         [m for m, t in zip(on_face, problem.bc_faces) if t == "dirichlet"],
         torch.zeros((1, 1, 1, 1), dtype=torch.bool, device=device))
-    gvals = problem.g(xp, yp, zp) * torch.ones_like(trace)
-    bc_rows = torch.where(on_bdry, gvals, trace)
+    # g broadcasts against the trace in the where: a [nz, ny, nx, S] grid
+    # of ones would add two ~1 GB passes at 128^3 in float64.
+    bc_rows = torch.where(on_bdry, problem.g(xp, yp, zp), trace)
     return f_rows, bc_rows.reshape(E, -1), cs
 
 

@@ -1,22 +1,21 @@
-"""Transient extension: u_t + L u = f and u_tt + L u = f, in 1D and 2D.
+"""Transient extension: u_t + L u = f and u_tt + L u = f, in 1D, 2D, 3D.
 
-PyTorch counterpart of the 1D and 2D marches of
-``hybrid_fem_lssvr_tpu/models/transient.py``, with the same names,
-signatures (plus a trailing ``device=None``: the GPU unless the caller asks
-for ``device='cpu'``) and arithmetic:
+PyTorch counterpart of ``hybrid_fem_lssvr_tpu/models/transient.py``, with
+the same names, signatures (plus a trailing ``device=None``: the GPU
+unless the caller asks for ``device='cpu'``) and arithmetic:
 
-* ``fem_march`` / ``fem_march_2d`` — the P1 / Q1 theta-scheme (Crank-
-  Nicolson by default) with the consistent or the (1, 10, 1)/12 Numerov
-  mass; one tridiagonal solve (1D) or one Jacobi-CG solve of the
-  mass-dominated M + theta dt A (2D) a step.
+* ``fem_march`` / ``fem_march_2d`` / ``fem_march_3d`` — the P1 / Q1
+  theta-scheme (Crank-Nicolson by default) with the consistent or the
+  (1, 10, 1)/12 Numerov mass; one tridiagonal solve (1D) or one Jacobi-CG
+  solve of the mass-dominated M + theta dt A (2D, 3D) a step.
 * ``hybrid_march`` / ``hybrid_march_2d`` — the LSSVR-enhanced
   Crank-Nicolson march: per element a Legendre (tensor-Legendre in 2D)
   polynomial advanced by collocating the CN update with its trace pinned
   to the FEM march; the CN collocation operator is shared across
   elements, so the enhancement is the host float64 affine map
   (``kkt.precompute_shared_host`` in 1D, the null-space LSE map
-  ``kkt.precompute_shared_lse_host`` in 2D) applied by
-  ``kkt.solve_primal_shared``: two matrix products a step.
+  ``kkt.precompute_shared_lse_host`` in 2D and 3D): two matrix products
+  a step.
 * ``wave_march`` / ``hybrid_wave_march`` / ``wave_march_2d`` /
   ``hybrid_wave_march_2d`` — Newmark-beta for u_tt + L u = f, the
   enhanced form solving one shared collocation system for the
@@ -38,13 +37,17 @@ resumed march is bit for bit the uninterrupted one.  The time axis is
 ``arange(n_steps) * dt`` in the run dtype, as in JAX, and the step reads
 ``ts[i]`` as a 0-d tensor.  One dtype runs a march, coarse stage
 included (``fem_dtype`` is not consulted, as in JAX).  Per step each 2D
-march reads one scalar a CG iteration (``ops/cg.py``); the adaptive 2D
-march also reads its step size once an attempt, to build the implicit
-operator's local matrix on the host.
+and 3D march reads one scalar a CG iteration (``ops/cg.py``); the
+adaptive 2D and 3D marches also read their step size once an attempt, to
+build the implicit operator's local matrix on the host.
 
-The 3D marches and ``elastic_wave.py`` are not ported yet (ROADMAP.md §1
-queue item 1).  ``_tri_apply``, ``_numerov_setup`` and
-``_numerov_locals_2d`` also serve ``models/eigen.py``.
+Each 2D march has a 3D lift on hexes under the same name with ``_3d``
+(the 3D section below); ``models/elastic_wave.py`` builds its
+elastodynamics marches on ``_march_scan`` and ``_masked_cg``.  The
+enhanced marches apply the shared affine map through
+``kkt.apply_shared``, without the diagnostics that no march reads.
+``_tri_apply``, ``_numerov_setup`` and ``_numerov_locals_2d`` also serve
+``models/eigen.py``.
 
 The marches run inside the ``torch.profiler.record_function`` spans
 ``SPANS``: the host set-up, the FEM step and the element enhancement.
@@ -58,11 +61,12 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops import assembly, assembly2d, cg, kkt, legendre, tridiag
+from ..ops import assembly, assembly2d, assembly3d, cg, kkt, legendre, tridiag
 from ..utils import checkpoint as _ckpt
 from ..utils.device import resolve as resolve_device
 from .hybrid import SolverConfig, _dirichlet_consistent, uniform_nodes
 from .hybrid2d import _boundary_coords, _element_data_2d
+from .hybrid3d import _element_data_3d, _spacings, _surface_coords
 from .problem import Problem1D
 
 _span = torch.profiler.record_function
@@ -346,7 +350,7 @@ def hybrid_march(problem: TransientProblem1D, cfg: SolverConfig,
             bc = _end_traces(p, u1)
             # collocated CN rhs: (2/dt) u^n - L u^n + f^n + f^{n+1}
             f_rows = w @ R_op.T + problem.f(xc, t) + problem.f(xc, t + dt)
-            w1, _ = kkt.solve_primal_shared(shared, f_rows, bc)
+            w1 = kkt.apply_shared(shared, f_rows, bc)
         return (u1, w1), None
 
     # initial state: P1 nodal restriction + per-element least-squares fit
@@ -507,19 +511,27 @@ def _jacobi_2d(K, interior):
     return torch.where(interior, 1.0 / diag, 1.0)
 
 
+def _masked_cg(apply_full, rhs, interior, M_inv, cfg, tol):
+    """(x, CG iterations): the preconditioned CG solve of the operator
+    ``apply_full`` restricted to the ``interior`` nodes, x zero elsewhere
+    (``interior`` broadcasts over a leading component axis, as in the
+    elastodynamics marches)."""
+    def apply_free(v):
+        return torch.where(interior, apply_full(v * interior), 0.0)
+
+    res = cg.cg(apply_free, torch.where(interior, rhs, 0.0), M_inv=M_inv,
+                tol=tol, maxiter=cfg.cg_maxiter)
+    return torch.where(interior, res.x, 0.0), res.iters
+
+
 def _free_solve_2d(K, rhs, interior, cfg, tol, M_inv=None):
     """(x, CG iterations): the Jacobi-CG solve of the operator of the
     local matrix K restricted to the interior nodes, x zero on the
     boundary.  M_inv is ``_jacobi_2d(K, interior)`` when not given."""
-    def apply_free(v):
-        return torch.where(interior,
-                           assembly2d.apply_stiffness(v * interior, K), 0.0)
-
     if M_inv is None:
         M_inv = _jacobi_2d(K, interior)
-    res = cg.cg(apply_free, torch.where(interior, rhs, 0.0), M_inv=M_inv,
-                tol=tol, maxiter=cfg.cg_maxiter)
-    return torch.where(interior, res.x, 0.0), res.iters
+    return _masked_cg(lambda v: assembly2d.apply_stiffness(v, K), rhs,
+                      interior, M_inv, cfg, tol)
 
 
 def _load_at_2d(problem, xs, ys, K_M, numerov):
@@ -722,7 +734,7 @@ def hybrid_march_2d(problem: TransientProblem2D, cfg,
                                  trace_lift)
             rhs = w @ R_op.T + f_rows(problem.f, t) + f_rows(problem.f,
                                                              t + dt)
-            w1, _ = kkt.solve_primal_shared(shared, rhs, bc_rows)
+            w1 = kkt.apply_shared(shared, rhs, bc_rows)
         return (u1, w1), iters
 
     Y, X = torch.meshgrid(ys, xs, indexing="ij")
@@ -730,7 +742,7 @@ def hybrid_march_2d(problem: TransientProblem2D, cfg,
     # initial per-element fit: values at interior colloc + trace of u0
     f0_rows = f_rows(problem.u0)
     bc0 = _traces_2d(p, cfg, xs, ys, u0g, t_int, bpts, trace_lift)
-    w0, _ = kkt.solve_primal_shared(proj, f0_rows, bc0)
+    w0 = kkt.apply_shared(proj, f0_rows, bc0)
     _, ts = _time_axis(tcfg, dtype, dev)
     (uN, wN), iters = _march_scan(scan_step, (u0g, w0), ts, problem, cfg,
                                   tcfg, "hybrid_march_2d")
@@ -907,7 +919,7 @@ def hybrid_wave_march(problem: WaveProblem1D, cfg: SolverConfig,
             f_rows = problem.f(xc, t + dt) - w_pred @ D_L.T
             pred_tr = w_pred @ Bj.T  # [E, 2]
             bc = (_end_traces(p, u1) - pred_tr) / bdt2
-            wa1, _ = kkt.solve_primal_shared(shared, f_rows, bc)
+            wa1 = kkt.apply_shared(shared, f_rows, bc)
             wu1 = w_pred + bdt2 * wa1
             wv1 = wv + dt * ((1.0 - gamma_n) * wa + gamma_n * wa1)
         return (u1, v1, a1, wu1, wv1, wa1), None
@@ -1063,7 +1075,7 @@ def hybrid_wave_march_2d(problem: WaveProblem2D, cfg,
             bc_u1 = _traces_2d(p, cfg, xs, ys, u1, t_int, bpts, trace_lift)
             pred_tr = w_pred @ Bj.T
             bc_a = (bc_u1 - pred_tr) / bdt2
-            wa1, _ = kkt.solve_primal_shared(shared, fr, bc_a)
+            wa1 = kkt.apply_shared(shared, fr, bc_a)
             wu1 = w_pred + bdt2 * wa1
             wv1 = wv + dt * ((1.0 - gamma_n) * wa + gamma_n * wa1)
         return (u1, v1, a1, wu1, wv1, wa1), iters
@@ -1083,10 +1095,10 @@ def hybrid_wave_march_2d(problem: WaveProblem2D, cfg,
     p0 = dataclasses.replace(p, g=lambda x, y: torch.zeros_like(x + y))
     bc_v0 = _traces_2d(p0, cfg, xs, ys, v0g, t_int, bpts, trace_lift)
     bc_a0 = _traces_2d(p0, cfg, xs, ys, a0g, t_int, bpts, trace_lift)
-    wu0, _ = kkt.solve_primal_shared(proj, F0u, bc_u0)
-    wv0, _ = kkt.solve_primal_shared(proj, F0v, bc_v0)
+    wu0 = kkt.apply_shared(proj, F0u, bc_u0)
+    wv0 = kkt.apply_shared(proj, F0v, bc_v0)
     fa0 = f_rows(problem.f, zero_t) - wu0 @ D_L.T
-    wa0, _ = kkt.solve_primal_shared(proj, fa0, bc_a0)
+    wa0 = kkt.apply_shared(proj, fa0, bc_a0)
     _, ts = _time_axis(tcfg, dtype, dev)
     (uN, vN, _, wuN, _, _), iters = _march_scan(
         step, (u0g, v0g, a0g, wu0, wv0, wa0), ts, problem, cfg, tcfg,
@@ -1191,7 +1203,7 @@ def hybrid_march_semilinear(problem: SemilinearTransientProblem1D,
             sc_n = problem.s(uc)
             f_rows = (w @ R_op.T + problem.f(xc, t) + problem.f(xc, t + dt)
                       - (3.0 * sc_n - sc_prev))
-            w1, _ = kkt.solve_primal_shared(shared, f_rows, bc)
+            w1 = kkt.apply_shared(shared, f_rows, bc)
         return (u1, s_n, w1, sc_n), None
 
     u0 = problem.u0(nodes).to(dtype)
@@ -1299,14 +1311,14 @@ def hybrid_march_semilinear_2d(problem: SemilinearTransientProblem2D,
             sc_n = problem.s(w @ Mass_op.T)
             rhs = (w @ R_op.T + f_rows(problem.f, t)
                    + f_rows(problem.f, t + dt) - (3.0 * sc_n - sc_prev))
-            w1, _ = kkt.solve_primal_shared(shared, rhs, bc_rows)
+            w1 = kkt.apply_shared(shared, rhs, bc_rows)
         return (u1, s_n, w1, sc_n), iters
 
     Y, X = torch.meshgrid(ys, xs, indexing="ij")
     u0g = _initial_grid(problem.u0, X, Y, interior, u_bc, dtype)
     f0_rows = f_rows(problem.u0)
     bc0 = _traces_2d(p, cfg, xs, ys, u0g, t_int, bpts, trace_lift)
-    w0, _ = kkt.solve_primal_shared(proj, f0_rows, bc0)
+    w0 = kkt.apply_shared(proj, f0_rows, bc0)
     sc0 = problem.s(w0 @ Mass_op.T)
     _, ts = _time_axis(tcfg, dtype, dev)
     (uN, _, wN, _), iters = _march_scan(
@@ -1511,5 +1523,632 @@ def fem_march_adaptive_2d(problem: TransientProblem2D, cfg,
         cfg, _AdaptiveParams(t_final, tol, dt0, max_attempts),
         "fem_march_adaptive_2d", checkpoint, checkpoint_chunk)
     sol = TransientSolution2D(xs, ys, uN, None, float(t_final), 0)
+    return AdaptiveMarchResult(solution=sol, t_reached=tN, accepted=acc,
+                               rejected=rej, max_err=emax)
+
+
+# --------------------------------------------------------------- 3D
+#
+# The tensor lift onto structured hexes: every 3D march is its 2D
+# counterpart with ``ops.assembly3d``'s 8x8 local matrices, one
+# interior-masked Jacobi-CG solve a step (``_free_solve_3d``) and, when
+# enhanced, the shared affine maps on [E, C^3] collocation and [E, S]
+# surface-trace rows.  The enhanced marches read only the trace rows of
+# ``hybrid3d._element_data_3d`` and skip its collocation rows
+# (``skip_f=True``), which JAX's jit drops as unused.
+
+
+@dataclasses.dataclass(frozen=True)
+class TransientProblem3D:
+    """u_t + L u = f(x, y, z, t) on a box; L (and BCs) a Problem3D."""
+
+    name: str
+    elliptic: "object"  # models.hybrid3d.Problem3D
+    f: Callable  # f(x, y, z, t)
+    u0: Callable  # u0(x, y, z)
+    exact: Optional[Callable] = None  # exact(x, y, z, t)
+
+
+class TransientSolution3D(NamedTuple):
+    xs: torch.Tensor
+    ys: torch.Tensor
+    zs: torch.Tensor
+    fem_values: torch.Tensor  # [nz+1, ny+1, nx+1] at t_final
+    coeffs: Optional[torch.Tensor]  # [nz, ny, nx, M, M, M]
+    t_final: float
+    cg_iters: int  # the most Jacobi-CG iterations of any step
+
+
+def _check_3d_dirichlet(p):
+    if any(t != "dirichlet" for t in p.bc_faces):
+        raise NotImplementedError(
+            "3D transient marches support all-Dirichlet faces")
+    if p.a_var is not None:
+        raise NotImplementedError(
+            "3D transient marches require constant coefficients")
+
+
+def _locals_3d(hx, hy, hz, p, mass):
+    """Host float64 local 8x8 (K_A, K_M): the Q1 hex operators are exact
+    tensor products of the 1D P1 matrices (``ops.assembly3d``), so the
+    Numerov (1, 10, 1)/12 mass tensorises as in 2D."""
+    if mass == "numerov":
+        if p.b != (0.0, 0.0, 0.0):
+            raise NotImplementedError("numerov mass requires b == 0")
+        return assembly3d.q1_numerov_locals_3d(hx, hy, hz, p.a0, p.c)
+    K_M = assembly3d._t3(assembly3d._m1(hz), assembly3d._m1(hy),
+                         assembly3d._m1(hx))
+    K_A = np.asarray(assembly3d.q1_local_operator_3d(hx, hy, hz, p.a0, p.c,
+                                                     *p.b))
+    return K_A, K_M
+
+
+class _Grid3D(NamedTuple):
+    """The node grid of a 3D march: axes, their broadcast views X [1, 1,
+    nx+1], Y [1, ny+1, 1], Z [nz+1, 1, 1], the interior mask, a grid of
+    ones and the Dirichlet lift u_bc."""
+
+    xs: torch.Tensor
+    ys: torch.Tensor
+    zs: torch.Tensor
+    X: torch.Tensor
+    Y: torch.Tensor
+    Z: torch.Tensor
+    interior: torch.Tensor
+    ones: torch.Tensor
+    u_bc: torch.Tensor
+
+
+def _grid_3d(p, cfg, dtype, device):
+    x0, x1, y0, y1, z0, z1 = p.domain
+    xs = torch.linspace(x0, x1, cfg.nx + 1, dtype=dtype, device=device)
+    ys = torch.linspace(y0, y1, cfg.ny + 1, dtype=dtype, device=device)
+    zs = torch.linspace(z0, z1, cfg.nz + 1, dtype=dtype, device=device)
+    shape = (cfg.nz + 1, cfg.ny + 1, cfg.nx + 1)
+    interior = torch.zeros(shape, dtype=torch.bool, device=device)
+    interior[1:-1, 1:-1, 1:-1] = True
+    X, Y, Z = xs[None, None, :], ys[None, :, None], zs[:, None, None]
+    ones = torch.ones(shape, dtype=dtype, device=device)
+    u_bc = torch.where(interior, 0.0, p.g(X, Y, Z) * ones)
+    return _Grid3D(xs, ys, zs, X, Y, Z, interior, ones, u_bc)
+
+
+def _on_grid_3d(fn, g, outside, dtype):
+    """fn(X, Y, Z) on the interior nodes, ``outside`` elsewhere."""
+    return torch.where(g.interior, fn(g.X, g.Y, g.Z) * g.ones,
+                       outside).to(dtype)
+
+
+def _march_setup_3d(problem, cfg, mass, device):
+    """(dtype, (hx, hy, hz), K_A, K_M, grid) of a 3D march; the local
+    matrices are CPU tensors in the run dtype (``assembly3d`` reads them
+    as Python numbers)."""
+    p = problem.elliptic
+    _check_3d_dirichlet(p)
+    dtype = cfg.torch_dtype()
+    hs = _spacings(p, cfg)
+    K_A, K_M = (torch.as_tensor(K, dtype=dtype)
+                for K in _locals_3d(*hs, p, mass))
+    return dtype, hs, K_A, K_M, _grid_3d(p, cfg, dtype,
+                                         resolve_device(device))
+
+
+def _jacobi_3d(K, interior):
+    """The Jacobi preconditioner of the interior-restricted operator of
+    the local matrix K on the node grid ``interior``."""
+    diag = assembly3d.stiffness_diag_3d(tuple(interior.shape), K, K.dtype,
+                                        device=interior.device)
+    return torch.where(interior, 1.0 / diag, 1.0)
+
+
+def _free_solve_3d(K, rhs, interior, cfg, tol, M_inv=None):
+    """(x, CG iterations): the Jacobi-CG solve of the hex operator of the
+    local matrix K restricted to the interior nodes, x zero on the
+    boundary (the 3D ``_free_solve_2d``).  M_inv is ``_jacobi_3d(K,
+    interior)`` when not given."""
+    if M_inv is None:
+        M_inv = _jacobi_3d(K, interior)
+    return _masked_cg(lambda v: assembly3d.apply_stiffness_3d(v, K), rhs,
+                      interior, M_inv, cfg, tol)
+
+
+def _load_at_3d(problem, g, K_M, numerov):
+    """load(t) on the node grid: Numerov-weighted nodal load or the
+    Gauss-assembled consistent one (as ``_load_at_2d``)."""
+    if numerov:
+        def load_at(t):
+            return assembly3d.apply_stiffness_3d(
+                problem.f(g.X, g.Y, g.Z, t) * g.ones, K_M)
+    else:
+        def load_at(t):
+            return assembly3d.assemble_load_3d(
+                g.xs, g.ys, g.zs, lambda x, y, z: problem.f(x, y, z, t))
+    return load_at
+
+
+def _theta_step_3d(problem, cfg, g, K_A, K_M, dt, th, numerov,
+                   semilinear=False):
+    """One theta-step closure on hexes: u^n -> (u^{n+1}, CG iterations),
+    or with ``semilinear`` the IMEX CNAB step on the carry (u^n,
+    s(u^{n-1})) (the 3D ``_fem_step_2d``).  The Dirichlet lift's operator
+    term is applied once, here."""
+    K_lhs = K_M + th * dt * K_A
+    K_rhs = K_M - (1.0 - th) * dt * K_A
+    M_inv = _jacobi_3d(K_lhs, g.interior)
+    bc_term = assembly3d.apply_stiffness_3d(g.u_bc, K_lhs)
+    tol = _cg_tol(cfg, K_A.dtype)
+    load_at = _load_at_3d(problem, g, K_M, numerov)
+
+    def theta_step(u, t, s_ex=None):
+        r = (assembly3d.apply_stiffness_3d(u, K_rhs)
+             + dt * (th * load_at(t + dt) + (1.0 - th) * load_at(t)))
+        if s_ex is not None:
+            r = r - dt * assembly3d.apply_stiffness_3d(s_ex, K_M)
+        x, iters = _free_solve_3d(K_lhs, r - bc_term, g.interior, cfg, tol,
+                                  M_inv)
+        return g.u_bc + x, iters
+
+    def step(u, t):
+        with _span("march.fem_step"):
+            return theta_step(u, t)
+
+    def imex_step(carry, t):
+        u, s_prev = carry
+        with _span("march.fem_step"):
+            s_n = problem.s(u)
+            u1, iters = theta_step(u, t, 1.5 * s_n - 0.5 * s_prev)
+            return (u1, s_n), iters
+
+    return imex_step if semilinear else step
+
+
+def fem_march_3d(problem: TransientProblem3D, cfg, tcfg: TransientConfig,
+                 device=None):
+    """Q1 hex theta-scheme march (3D lift of ``fem_march_2d``): per step
+    one Jacobi-CG solve of the mass-dominated system."""
+    with _span("march.setup"):
+        dtype, _, K_A, K_M, g = _march_setup_3d(problem, cfg, tcfg.mass,
+                                                device)
+        dt, ts = _time_axis(tcfg, dtype, g.xs.device)
+        step = _theta_step_3d(problem, cfg, g, K_A, K_M, dt, tcfg.theta,
+                              tcfg.mass == "numerov")
+        u0 = _on_grid_3d(problem.u0, g, g.u_bc, dtype)
+    uN, iters = _march_scan(step, u0, ts, problem, cfg, tcfg,
+                            "fem_march_3d")
+    return TransientSolution3D(g.xs, g.ys, g.zs, uN, None, tcfg.t_final,
+                               _max_iters(iters))
+
+
+def _mass_dl_b_3d(p, cfg):
+    """Host f64 (Mass, D_L, B, t_int, spts) on the shared hex — the common
+    ingredients of the enhanced 3D CN and Newmark marches."""
+    hx, hy, hz = _spacings(p, cfg)
+    M, C = cfg.M, cfg.n_colloc
+    t_int = np.linspace(-1.0, 1.0, C + 2)[1:-1]
+    V0, V1, V2 = legendre.vandermonde_host(t_int, M)
+    sx, sy, sz = 2.0 / hx, 2.0 / hy, 2.0 / hz
+
+    def t3(Az, Ay, Ax):
+        return np.einsum("zk,yl,xm->zyxklm", Az, Ay, Ax).reshape(
+            C * C * C, M * M * M)
+
+    Mass = t3(V0, V0, V0)
+    D_L = -p.a0 * (sx * sx * t3(V0, V0, V2) + sy * sy * t3(V0, V2, V0)
+                   + sz * sz * t3(V2, V0, V0))
+    bx, by, bz = p.b
+    if bx != 0.0:
+        D_L = D_L + bx * sx * t3(V0, V0, V1)
+    if by != 0.0:
+        D_L = D_L + by * sy * t3(V0, V1, V0)
+    if bz != 0.0:
+        D_L = D_L + bz * sz * t3(V1, V0, V0)
+    if p.c != 0.0:
+        D_L = D_L + p.c * Mass
+    spts = _surface_coords(M)
+    Vz_b = legendre.vandermonde_host(spts[:, 0], M)[0]
+    Vy_b = legendre.vandermonde_host(spts[:, 1], M)[0]
+    Vx_b = legendre.vandermonde_host(spts[:, 2], M)[0]
+    B = np.einsum("pk,pl,pm->pklm", Vz_b, Vy_b, Vx_b).reshape(
+        -1, M * M * M)
+    return Mass, D_L, B, t_int, spts
+
+
+def _shared_cn_ops_3d(p, cfg, dt):
+    """Host f64 shared CN operators for the 3D enhanced march (the 3D
+    lift of ``_shared_cn_ops_2d``): (shared LSE map of D_CN, projection
+    map of Mass, rhs operator (2/dt)·Mass - D_L, t_int, spts), the maps
+    and the operator CPU tensors in the run dtype."""
+    dtype = cfg.torch_dtype()
+    Mass, D_L, B, t_int, spts = _mass_dl_b_3d(p, cfg)
+    D_CN = (2.0 / dt) * Mass + D_L
+    shared = kkt.precompute_shared_lse_host(D_CN, B, dtype)
+    proj = kkt.precompute_shared_lse_host(Mass, B, dtype)
+    R_op = torch.as_tensor((2.0 / dt) * Mass - D_L, dtype=dtype)
+    return shared, proj, R_op, t_int, spts
+
+
+def _colloc_rows_3d(xs, ys, zs, hx, hy, hz, t_int, C):
+    """f_rows(fn, *t) -> [E, C^3] rows of fn(x, y, z, *t) at the interior
+    collocation points, (iz, iy, ix) x (cz, cy, cx) row-major as in
+    ``_element_data_3d``.  The rows are the broadcast values copied once
+    (JAX multiplies by a [nz, ny, nx, C, C, C] grid of ones, which its
+    jit fuses away)."""
+    t_j = torch.as_tensor(t_int, dtype=xs.dtype, device=xs.device)
+    xq = xs[:-1][:, None] + 0.5 * hx * (t_j[None, :] + 1.0)  # [nx, C]
+    yq = ys[:-1][:, None] + 0.5 * hy * (t_j[None, :] + 1.0)
+    zq = zs[:-1][:, None] + 0.5 * hz * (t_j[None, :] + 1.0)
+    nx, ny, nz = xq.shape[0], yq.shape[0], zq.shape[0]
+    shape = (nz, ny, nx, C, C, C)
+
+    def f_rows(fn, *t):
+        F = fn(xq[None, None, :, None, None, :],
+               yq[None, :, None, None, :, None],
+               zq[:, None, None, :, None, None], *t)
+        F = torch.as_tensor(F, dtype=xs.dtype, device=xs.device)
+        return torch.broadcast_to(F, shape).reshape(nx * ny * nz, C ** 3)
+
+    return f_rows
+
+
+def _traces_3d(p, cfg, g, u, t_int, spts, trace_lift):
+    """[E, S] element surface traces of the node field u
+    (``_element_data_3d`` without its collocation rows)."""
+    _, bc_rows, _ = _element_data_3d(p, cfg, g.xs, g.ys, g.zs, u, t_int,
+                                     spts, trace_lift=trace_lift,
+                                     skip_f=True)
+    return bc_rows
+
+
+def hybrid_march_3d(problem: TransientProblem3D, cfg,
+                    tcfg: TransientConfig, trace_lift: int = 0,
+                    device=None):
+    """LSSVR-enhanced 3D CN march: per-hex tensor-Legendre polynomial
+    advanced by collocating the CN update at interior points, trace
+    pinned to the Q1 hex march at the surface points (3D lift of
+    ``hybrid_march_2d``; the enhanced Linf floor is the trilinear trace
+    error O(h^2), or with ``trace_lift=6`` and the numerov mass the
+    march's O(h^4) nodal error)."""
+    if tcfg.theta != 0.5:
+        raise ValueError("hybrid_march_3d collocates the Crank-Nicolson "
+                         "update; theta must be 0.5")
+    p = problem.elliptic
+    M = cfg.M
+    with _span("march.setup"):
+        dtype, hs, K_A, K_M, g = _march_setup_3d(problem, cfg, tcfg.mass,
+                                                 device)
+        dev = g.xs.device
+        dt, ts = _time_axis(tcfg, dtype, dev)
+        shared, proj, R_op, t_int, spts = _shared_cn_ops_3d(p, cfg, dt)
+        shared, proj, R_op = shared.to(dev), proj.to(dev), R_op.to(dev)
+        f_rows = _colloc_rows_3d(g.xs, g.ys, g.zs, *hs, t_int, cfg.n_colloc)
+        fem_step = _theta_step_3d(problem, cfg, g, K_A, K_M, dt, 0.5,
+                                  tcfg.mass == "numerov")
+
+    def scan_step(carry, t):
+        u, w = carry
+        u1, iters = fem_step(u, t)
+        with _span("march.enhance"):
+            bc_rows = _traces_3d(p, cfg, g, u1, t_int, spts, trace_lift)
+            rhs = (w @ R_op.T + f_rows(problem.f, t)
+                   + f_rows(problem.f, t + dt))
+            w1 = kkt.apply_shared(shared, rhs, bc_rows)
+        return (u1, w1), iters
+
+    u0g = _on_grid_3d(problem.u0, g, g.u_bc, dtype)
+    bc0 = _traces_3d(p, cfg, g, u0g, t_int, spts, trace_lift)
+    w0 = kkt.apply_shared(proj, f_rows(problem.u0), bc0)
+    (uN, wN), iters = _march_scan(scan_step, (u0g, w0), ts, problem, cfg,
+                                  tcfg, "hybrid_march_3d")
+    return TransientSolution3D(
+        g.xs, g.ys, g.zs, uN, wN.reshape(cfg.nz, cfg.ny, cfg.nx, M, M, M),
+        tcfg.t_final, _max_iters(iters))
+
+
+def heat_3d() -> TransientProblem3D:
+    """u_t - Lap u = (3 pi^2 - 1) e^{-t} sin sin sin, u = 0 on the
+    boundary; exact u = e^{-t} sin(pi x) sin(pi y) sin(pi z)."""
+    pi = torch.pi
+    from .hybrid3d import poisson_3d
+
+    def s3(x, y, z):
+        return torch.sin(pi * x) * torch.sin(pi * y) * torch.sin(pi * z)
+
+    return TransientProblem3D(
+        name="heat_3d",
+        elliptic=dataclasses.replace(poisson_3d(),
+                                     name="heat_3d_operator"),
+        f=lambda x, y, z, t: (3.0 * pi**2 - 1.0) * torch.exp(-_tt(t, x))
+        * s3(x, y, z),
+        u0=s3,
+        exact=lambda x, y, z, t: torch.exp(-_tt(t, x)) * s3(x, y, z),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class WaveProblem3D:
+    """u_tt + L u = f(x, y, z, t); L (and BCs) a Problem3D."""
+
+    name: str
+    elliptic: "object"
+    f: Callable
+    u0: Callable
+    v0: Callable
+    exact: Optional[Callable] = None
+
+
+def wave_3d() -> WaveProblem3D:
+    """Free vibration u_tt = Lap u on the cube; exact
+    u = cos(sqrt(3) pi t) sin sin sin."""
+    pi = torch.pi
+    from .hybrid3d import poisson_3d
+
+    om = float(np.sqrt(3.0)) * pi
+
+    def s3(x, y, z):
+        return torch.sin(pi * x) * torch.sin(pi * y) * torch.sin(pi * z)
+
+    return WaveProblem3D(
+        name="wave_3d",
+        elliptic=dataclasses.replace(poisson_3d(),
+                                     name="wave_3d_operator"),
+        f=lambda x, y, z, t: torch.zeros_like(x + y + z),
+        u0=s3,
+        v0=lambda x, y, z: torch.zeros_like(x + y + z),
+        exact=lambda x, y, z, t: torch.cos(om * _tt(t, x)) * s3(x, y, z),
+    )
+
+
+def _newmark_3d(problem, cfg, tcfg, beta, gamma_n, device):
+    """The Q1 hex Newmark march's pieces: (dtype, (hx, hy, hz), dt, grid,
+    K_A, the FEM step (u, v, a, t) -> (u1, v1, a1, CG iterations), the
+    initial (u0, v0, a0) grids)."""
+    dtype, hs, K_A, K_M, g = _march_setup_3d(problem, cfg, tcfg.mass,
+                                             device)
+    dt = tcfg.t_final / tcfg.n_steps
+    bdt2 = beta * dt * dt
+    K_lhs = K_M + bdt2 * K_A
+    M_inv = _jacobi_3d(K_lhs, g.interior)
+    tol = _cg_tol(cfg, dtype)
+    load_at = _load_at_3d(problem, g, K_M, tcfg.mass == "numerov")
+
+    def fem_step(u, v, a, t):
+        pred = u + dt * v + 0.5 * dt * dt * (1.0 - 2.0 * beta) * a
+        rhs = load_at(t + dt) - assembly3d.apply_stiffness_3d(pred, K_A)
+        a1, iters = _free_solve_3d(K_lhs, rhs, g.interior, cfg, tol, M_inv)
+        u1 = g.u_bc + torch.where(g.interior, pred + bdt2 * a1, 0.0)
+        v1 = v + dt * ((1.0 - gamma_n) * a + gamma_n * a1)
+        return u1, v1, a1, iters
+
+    u0g = _on_grid_3d(problem.u0, g, g.u_bc, dtype)
+    v0g = _on_grid_3d(problem.v0, g, 0.0, dtype)
+    zero_t = torch.zeros((), dtype=dtype, device=g.xs.device)
+    a0g, _ = _free_solve_3d(
+        K_M, load_at(zero_t) - assembly3d.apply_stiffness_3d(u0g, K_A),
+        g.interior, cfg, tol)
+    return dtype, hs, dt, g, K_A, fem_step, (u0g, v0g, a0g)
+
+
+def wave_march_3d(problem: WaveProblem3D, cfg, tcfg: TransientConfig,
+                  beta: float = 0.25, gamma_n: float = 0.5, device=None):
+    """Newmark-beta march on Q1 hexes (3D lift of ``wave_march_2d``).
+    Returns (solution, nodal velocity grid at t_final)."""
+    with _span("march.setup"):
+        dtype, _, _, g, _, fem_step, init = _newmark_3d(
+            problem, cfg, tcfg, beta, gamma_n, device)
+        _, ts = _time_axis(tcfg, dtype, g.xs.device)
+
+    def step(carry, t):
+        with _span("march.fem_step"):
+            u1, v1, a1, iters = fem_step(*carry, t)
+        return (u1, v1, a1), iters
+
+    (uN, vN, _), iters = _march_scan(step, init, ts, problem, cfg, tcfg,
+                                     "wave_march_nd")
+    return TransientSolution3D(g.xs, g.ys, g.zs, uN, None, tcfg.t_final,
+                               _max_iters(iters)), vN
+
+
+def hybrid_wave_march_3d(problem: WaveProblem3D, cfg,
+                         tcfg: TransientConfig, beta: float = 0.25,
+                         gamma_n: float = 0.5, trace_lift: int = 0,
+                         device=None):
+    """LSSVR-enhanced 3D Newmark march (tensor lift of
+    ``hybrid_wave_march_2d``): per-hex (u, v, a) coefficient triples,
+    one shared-LSE solve of Mass + beta dt^2 D_L per step, trace pinning
+    transferred to the acceleration."""
+    p = problem.elliptic
+    M = cfg.M
+    with _span("march.setup"):
+        dtype, hs, dt, g, K_A, fem_step, (u0g, v0g, a0g) = _newmark_3d(
+            problem, cfg, tcfg, beta, gamma_n, device)
+        dev = g.xs.device
+        bdt2 = beta * dt * dt
+        Mass64, D_L64, B64, t_int, spts = _mass_dl_b_3d(p, cfg)
+        shared = kkt.precompute_shared_lse_host(Mass64 + bdt2 * D_L64, B64,
+                                                dtype).to(dev)
+        proj = kkt.precompute_shared_lse_host(Mass64, B64, dtype).to(dev)
+        D_L = torch.as_tensor(D_L64, dtype=dtype, device=dev)
+        Bj = torch.as_tensor(B64, dtype=dtype, device=dev)
+        f_rows = _colloc_rows_3d(g.xs, g.ys, g.zs, *hs, t_int, cfg.n_colloc)
+
+    def traces(q, u):
+        return _traces_3d(q, cfg, g, u, t_int, spts, trace_lift)
+
+    def step(carry, t):
+        u, v, a, wu, wv, wa = carry
+        with _span("march.fem_step"):
+            u1, v1, a1, iters = fem_step(u, v, a, t)
+        with _span("march.enhance"):
+            w_pred = wu + dt * wv + 0.5 * dt * dt * (1.0 - 2.0 * beta) * wa
+            fr = f_rows(problem.f, t + dt) - w_pred @ D_L.T
+            bc_a = (traces(p, u1) - w_pred @ Bj.T) / bdt2
+            wa1 = kkt.apply_shared(shared, fr, bc_a)
+            wu1 = w_pred + bdt2 * wa1
+            wv1 = wv + dt * ((1.0 - gamma_n) * wa + gamma_n * wa1)
+        return (u1, v1, a1, wu1, wv1, wa1), iters
+
+    # initial fits: u0/v0 from values + traces; the acceleration from the
+    # PDE a0 = f(0) - L u0 with the FEM a0's traces (zero Dirichlet data)
+    zero_t = torch.zeros((), dtype=dtype, device=dev)
+    p0 = dataclasses.replace(p, g=lambda x, y, z: torch.zeros_like(x + y + z))
+    wu0 = kkt.apply_shared(proj, f_rows(problem.u0), traces(p, u0g))
+    wv0 = kkt.apply_shared(proj, f_rows(problem.v0), traces(p0, v0g))
+    fa0 = f_rows(problem.f, zero_t) - wu0 @ D_L.T
+    wa0 = kkt.apply_shared(proj, fa0, traces(p0, a0g))
+    _, ts = _time_axis(tcfg, dtype, dev)
+    (uN, vN, _, wuN, _, _), iters = _march_scan(
+        step, (u0g, v0g, a0g, wu0, wv0, wa0), ts, problem, cfg, tcfg,
+        "hybrid_wave_march_3d")
+    return TransientSolution3D(
+        g.xs, g.ys, g.zs, uN, wuN.reshape(cfg.nz, cfg.ny, cfg.nx, M, M, M),
+        tcfg.t_final, _max_iters(iters)), vN
+
+
+@dataclasses.dataclass(frozen=True)
+class SemilinearTransientProblem3D:
+    """u_t + L u + s(u) = f(x, y, z, t); L (and BCs) a ``Problem3D``."""
+
+    name: str
+    elliptic: "object"
+    s: Callable
+    f: Callable
+    u0: Callable
+    exact: Optional[Callable] = None
+
+
+def _semilinear_pieces_3d(problem, p, cfg, tcfg, device=None):
+    """(dtype, (hx, hy, hz), dt, grid, IMEX CNAB step closure) of the 3D
+    semilinear marches; the step maps the carry (u^n, s(u^{n-1})) to
+    (carry, CG iterations)."""
+    dtype, hs, K_A, K_M, g = _march_setup_3d(problem, cfg, tcfg.mass,
+                                             device)
+    dt = tcfg.t_final / tcfg.n_steps
+    step = _theta_step_3d(problem, cfg, g, K_A, K_M, dt, tcfg.theta,
+                          tcfg.mass == "numerov", semilinear=True)
+    return dtype, hs, dt, g, step
+
+
+def fem_march_semilinear_3d(problem: SemilinearTransientProblem3D, cfg,
+                            tcfg: TransientConfig, device=None):
+    """Q1-hex/tensor-Numerov IMEX CNAB march (3D lift)."""
+    with _span("march.setup"):
+        dtype, _, _, g, step = _semilinear_pieces_3d(
+            problem, problem.elliptic, cfg, tcfg, device)
+        u0 = _on_grid_3d(problem.u0, g, g.u_bc, dtype)
+        _, ts = _time_axis(tcfg, dtype, g.xs.device)
+    (uN, _), iters = _march_scan(step, (u0, problem.s(u0)), ts, problem,
+                                 cfg, tcfg, "fem_march_semilinear_3d")
+    return TransientSolution3D(g.xs, g.ys, g.zs, uN, None, tcfg.t_final,
+                               _max_iters(iters))
+
+
+def hybrid_march_semilinear_3d(problem: SemilinearTransientProblem3D,
+                               cfg, tcfg: TransientConfig,
+                               trace_lift: int = 0, device=None):
+    """3D enhanced semilinear CN march (lift of
+    ``hybrid_march_semilinear_2d``): linear shared CN affine map + the
+    extrapolated reaction collocated from the previous hex polynomial."""
+    if tcfg.theta != 0.5:
+        raise ValueError("hybrid_march_semilinear_3d collocates the "
+                         "Crank-Nicolson update; theta must be 0.5")
+    p = problem.elliptic
+    M, C = cfg.M, cfg.n_colloc
+    with _span("march.setup"):
+        dtype, hs, dt, g, fem_step = _semilinear_pieces_3d(problem, p, cfg,
+                                                           tcfg, device)
+        dev = g.xs.device
+        shared, proj, R_op, t_int, spts = _shared_cn_ops_3d(p, cfg, dt)
+        shared, proj, R_op = shared.to(dev), proj.to(dev), R_op.to(dev)
+        V0i = legendre.vandermonde_host(t_int, M)[0]
+        Mass_op = torch.as_tensor(
+            np.einsum("zk,yl,xm->zyxklm", V0i, V0i, V0i).reshape(
+                C * C * C, M * M * M), dtype=dtype, device=dev)
+        f_rows = _colloc_rows_3d(g.xs, g.ys, g.zs, *hs, t_int, C)
+
+    def scan_step(carry, t):
+        u, s_prev, w, sc_prev = carry
+        (u1, s_n), iters = fem_step((u, s_prev), t)
+        with _span("march.enhance"):
+            bc_rows = _traces_3d(p, cfg, g, u1, t_int, spts, trace_lift)
+            sc_n = problem.s(w @ Mass_op.T)
+            rhs = (w @ R_op.T + f_rows(problem.f, t)
+                   + f_rows(problem.f, t + dt) - (3.0 * sc_n - sc_prev))
+            w1 = kkt.apply_shared(shared, rhs, bc_rows)
+        return (u1, s_n, w1, sc_n), iters
+
+    u0g = _on_grid_3d(problem.u0, g, g.u_bc, dtype)
+    bc0 = _traces_3d(p, cfg, g, u0g, t_int, spts, trace_lift)
+    w0 = kkt.apply_shared(proj, f_rows(problem.u0), bc0)
+    sc0 = problem.s(w0 @ Mass_op.T)
+    _, ts = _time_axis(tcfg, dtype, dev)
+    (uN, _, wN, _), iters = _march_scan(
+        scan_step, (u0g, problem.s(u0g), w0, sc0), ts, problem, cfg, tcfg,
+        "hybrid_march_semilinear_3d")
+    return TransientSolution3D(
+        g.xs, g.ys, g.zs, uN, wN.reshape(cfg.nz, cfg.ny, cfg.nx, M, M, M),
+        tcfg.t_final, _max_iters(iters))
+
+
+def semilinear_heat_3d() -> SemilinearTransientProblem3D:
+    """u_t - Lap u + u^3 = f, exact u = e^{-t} sin sin sin."""
+    pi = torch.pi
+    from .hybrid3d import get_problem_3d
+
+    def s3(x, y, z):
+        return torch.sin(pi * x) * torch.sin(pi * y) * torch.sin(pi * z)
+
+    def u(x, y, z, t):
+        return torch.exp(-_tt(t, x)) * s3(x, y, z)
+
+    return SemilinearTransientProblem3D(
+        name="semilinear_heat_3d",
+        elliptic=dataclasses.replace(get_problem_3d("poisson_3d"),
+                                     name="semilinear_heat_3d_operator"),
+        s=lambda v: v ** 3,
+        f=lambda x, y, z, t: (3.0 * pi ** 2 - 1.0) * u(x, y, z, t)
+        + u(x, y, z, t) ** 3,
+        u0=s3,
+        exact=u,
+    )
+
+
+def fem_march_adaptive_3d(problem: TransientProblem3D, cfg,
+                          t_final: float, tol: float = 1e-5,
+                          dt0: Optional[float] = None,
+                          max_attempts: int = 512,
+                          checkpoint: Optional[str] = None,
+                          checkpoint_chunk: int = 0,
+                          device=None) -> AdaptiveMarchResult:
+    """3D adaptive-dt Q1-hex march (tensor lift of
+    ``fem_march_adaptive_2d``): the implicit operator's local matrix
+    K_M + th dt K_A is built on the host from the attempt's dt (one
+    scalar read an attempt), so each attempt is two Jacobi-CG solves."""
+    with _span("march.setup"):
+        dtype, _, K_A, K_M, g = _march_setup_3d(problem, cfg, "consistent",
+                                                device)
+        tolcg = _cg_tol(cfg, dtype)
+        load_at = _load_at_3d(problem, g, K_M, False)
+
+    def theta_solve(u, t, dt, th):
+        with _span("march.fem_step"):
+            K_lhs = K_M + th * float(dt) * K_A
+            load = th * load_at(t + dt) + (1.0 - th) * load_at(t)
+            r = (assembly3d.apply_stiffness_3d(u, K_M)
+                 - (1.0 - th) * dt * assembly3d.apply_stiffness_3d(u, K_A)
+                 + dt * load)
+            x, _ = _free_solve_3d(
+                K_lhs, r - assembly3d.apply_stiffness_3d(g.u_bc, K_lhs),
+                g.interior, cfg, tolcg)
+            return g.u_bc + x
+
+    tf = torch.tensor(t_final, dtype=dtype, device=g.xs.device)
+    tol_j = torch.tensor(tol, dtype=dtype, device=g.xs.device)
+    u0 = _on_grid_3d(problem.u0, g, g.u_bc, dtype)
+    (uN, tN, _, acc, rej, emax), _ = _adaptive_scan(
+        _adaptive_attempt(theta_solve, tf, tol_j),
+        _adaptive_carry0(u0, t_final, dt0, dtype), max_attempts, problem,
+        cfg, _AdaptiveParams(t_final, tol, dt0, max_attempts),
+        "fem_march_adaptive_3d", checkpoint, checkpoint_chunk)
+    sol = TransientSolution3D(g.xs, g.ys, g.zs, uN, None, float(t_final), 0)
     return AdaptiveMarchResult(solution=sol, t_reached=tN, accepted=acc,
                                rejected=rej, max_err=emax)

@@ -413,10 +413,18 @@ def precompute_shared_lse_host(D0, B, dtype=torch.float32,
     )
 
 
+def apply_shared(ops: SharedOperators, f, bc):
+    """w [E, M] of all E elements in two matmuls, without the diagnostics
+    (for callers that read none, such as the time marches: the JAX
+    package's jit drops unread diagnostics, eager torch would compute
+    them).  f: [E, C]; bc: [E, K]."""
+    return f @ ops.Wf.T + bc @ ops.Wbc.T
+
+
 def solve_primal_shared(ops: SharedOperators, f, bc):
     """All E elements in two matmuls.  f: [E, C]; bc: [E, K] ->
     (w [E, M], KKTDiagnostics)."""
-    w = f @ ops.Wf.T + bc @ ops.Wbc.T
+    w = apply_shared(ops, f, bc)
     cond = None
     if ops.cond is not None:
         cond = ops.cond.expand(f.shape[0])

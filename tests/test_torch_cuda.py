@@ -997,3 +997,61 @@ def test_fully_resumed_scan_outputs_stay_on_the_card(dev, tmp_path, kind):
                                     fingerprint="fp")
         assert torch.equal(c, ref_c) and torch.equal(y, ref_y)
         assert y.device == c.device == ref_y.device and y.is_cuda
+
+
+def _rel(gpu, cpu):
+    return float((gpu.cpu() - cpu).abs().max() / cpu.abs().max())
+
+
+@pytest.mark.parametrize("march,prob,kw", [
+    ("hybrid_march_3d", "heat_3d", {"trace_lift": 6}),
+    ("hybrid_wave_march_3d", "wave_3d", {"trace_lift": 6}),
+    ("fem_march_adaptive_3d", "heat_3d", None),
+])
+def test_3d_march_on_gpu_matches_cpu(dev, march, prob, kw):
+    """A 3D march on the card and on the CPU at 6^3, float64: nodal values
+    within 1e-12 of their size, coefficients within 1e-9; the adaptive
+    march's counts equal."""
+    from hybrid_fem_lssvr_tpu_torch.models import transient as TR
+
+    cfg = Solver3DConfig(nx=6, ny=6, nz=6, M=4, n_colloc=4)
+    fn, p = getattr(TR, march), getattr(TR, prob)()
+    if kw is None:
+        gpu, cpu = (fn(p, cfg, t_final=0.25, tol=3e-3, max_attempts=16,
+                       device=d) for d in (dev, "cpu"))
+        assert (int(gpu.accepted), int(gpu.rejected)) == (
+            int(cpu.accepted), int(cpu.rejected))
+        gpu, cpu = gpu.solution, cpu.solution
+    else:
+        tcfg = TR.TransientConfig(t_final=0.25, n_steps=8, mass="numerov")
+        gpu, cpu = (fn(p, cfg, tcfg, device=d, **kw) for d in (dev, "cpu"))
+        if "wave" in march:
+            assert _rel(gpu[1], cpu[1]) < 1e-12
+            gpu, cpu = gpu[0], cpu[0]
+        assert gpu.coeffs.is_cuda and _rel(gpu.coeffs, cpu.coeffs) < 1e-9
+    assert gpu.fem_values.is_cuda
+    assert _rel(gpu.fem_values, cpu.fem_values) < 1e-12
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_elastic_wave_march_on_gpu_matches_cpu(dev, dim):
+    """The enhanced elastodynamics march on the card and on the CPU (16^2
+    or 4^3, float64): displacements and velocities within 1e-12 of their
+    size, coefficients within 1e-9, the energies within 1e-12."""
+    from hybrid_fem_lssvr_tpu_torch import ElasticConfig3D
+    from hybrid_fem_lssvr_tpu_torch.models import elastic_wave as EW
+    from hybrid_fem_lssvr_tpu_torch.models.transient import TransientConfig
+
+    tcfg = TransientConfig(t_final=0.2, n_steps=10)
+    if dim == 2:
+        fn, p = EW.hybrid_elastic_wave_march_2d, EW.elastic_wave_2d()
+        cfg = ElasticConfig2D(nx=16, ny=16, M=6, n_colloc=6)
+    else:
+        fn, p = EW.hybrid_elastic_wave_march_3d, EW.elastic_wave_3d()
+        cfg = ElasticConfig3D(nx=4, ny=4, nz=4, M=4, n_colloc=4)
+    gpu, cpu = (fn(p, cfg, tcfg, device=d) for d in (dev, "cpu"))
+    assert gpu.coeffs.is_cuda
+    for f in ("fem_values", "velocity", "energy0", "energyN"):
+        assert _rel(getattr(gpu, f), getattr(cpu, f)) < 1e-12, f
+    assert _rel(gpu.coeffs, cpu.coeffs) < 1e-9
+    assert abs(gpu.cg_iters - cpu.cg_iters) <= 1

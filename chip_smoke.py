@@ -2,12 +2,16 @@
 
     python3 chip_smoke.py [--gate-basis]
     python3 chip_smoke.py --identity OLD_TREE
+    python3 chip_smoke.py --sharded
 
 ``--gate-basis`` also solves each 2D, graded 2D, 3D, 2D elasticity,
 family and goal-oriented 2D configuration and the 1D eigensolve through
 the plain torch route on the card and prints its Linf (eigenvalue error):
 the numbers their gates are set from (the biharmonic chains and the mixed
 eigensolves print theirs on every run).
+
+``--sharded`` builds the kernels and runs only ``main_path_sharded``
+(below), with no summary and no last line.
 
 ``--identity OLD_TREE`` runs only the 1D varcoeff kernel of two checkouts
 (OLD_TREE's and this one's, each built from its own sources in a process
@@ -49,7 +53,15 @@ lifted trace on the same pencil), the clamped beam (E = 1,024) and plate
 semilinear and adaptive-step; 2^20 elements, 1024^2 quads and 128^3 hexes,
 float64, no kernel), with a kill-and-resume of a checkpointed march at
 2^20, and the elastodynamics marches (2D at 1024^2 quads, 3D at 64^3
-hexes, float64, no kernel).
+hexes, float64, no kernel).  Last, ``main_path_sharded`` runs the
+distributed solves of ``parallel/`` on four ranks that share the card
+(gloo): the 1D SPIKE solve at 2^20 elements through separable_kernel and
+varcoeff_kernel once a rank, poisson_2d at 1024^2 on y-slabs and on a
+2 x 2 grid, the graded 2D solve at 1024^2, poisson_3d at 128^3 on
+z-slabs and on a 2 x 2 grid and the graded 3D solve at 64^3; then the 1D
+solves on one rank under NCCL.  Each is held against the single-device
+solve of the same configuration on the card, and every rank's 1D shard
+outputs against its kernel's plain version on that shard's inputs.
 
 Each phase prints one JSON line.  The last lines are the kernel summary,
 the card's name and power limit as nvidia-smi reports them, and
@@ -194,8 +206,14 @@ BCV_REL = 2.0
 MEAN_RATIO = (0.66, 1.5)
 BCV_SKEWED_REL = 1e-5
 
+T0 = time.monotonic()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t_s`` is the seconds since the script started, so
+    the lines show where its time goes."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.monotonic() - T0}), flush=True)
 
 
 def check(ok, msg):
@@ -231,18 +249,6 @@ def cuda_ms(fn, reps=REPS):
     return times[len(times) // 2]
 
 
-def busy_ms(events, skip=()):
-    """Milliseconds in which the card ran anything: the union of the
-    intervals of the profiler's device events, leaving out the device-side
-    copies of user spans (names in ``skip``)."""
-    import torch
-
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.name not in skip)
-    return union_ms(spans, 1e3)
-
-
 def union_ms(spans, per_ms):
     """Milliseconds covered by the sorted (start, end) intervals, given in
     units of 1/per_ms ms."""
@@ -253,6 +259,79 @@ def union_ms(spans, per_ms):
             busy, lo = busy + hi - lo, a
         hi = max(hi, b)
     return (busy + hi - lo) / per_ms
+
+
+def read_profile(prof, span_names, count=None):
+    """What the stage profiles read from one torch.profiler run, straight
+    from its kineto results (``prof.events()`` takes ~20 s to build for a
+    trace of 50,000 device operations on the card's host): ({span:
+    {host_ms, device_ms}}, device-busy ms, device operations, calls and
+    host ms of the CPU op named ``count``).  A span's device ms is what
+    ``FunctionEvent.device_time_total`` gives: the device records linked
+    to the span's own CPU record or to a record nested in it on its
+    thread.  The device-side copies of the spans count neither as
+    operations nor as busy time."""
+    import torch
+
+    cpu = torch.autograd.DeviceType.CPU
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = {name: dict(host_ms=0.0, device_ms=0.0) for name in span_names}
+    front, found, device = {}, [], []
+    calls, call_ms = 0, 0.0
+    for e in prof.profiler.kineto_results.events():
+        kind, name = e.device_type(), e.name()
+        if kind == cuda:
+            device.append((e.linked_correlation_id(), e.start_ns(),
+                           e.end_ns(), name))
+        elif kind == cpu:
+            where = (e.start_thread_id(), e.start_ns(), e.end_ns())
+            if e.linked_correlation_id() == 0:
+                front[e.correlation_id()] = where
+            if name in spans:
+                spans[name]["host_ms"] += (where[2] - where[1]) / 1e6
+                found.append((name, *where))
+            elif name == count:
+                calls += 1
+                call_ms += (where[2] - where[1]) / 1e6
+    for link, start, end, _ in device:
+        if link not in front:
+            continue
+        thread, lo, hi = front[link]
+        for name, t, a, b in found:
+            if t == thread and a <= lo and hi <= b:
+                spans[name]["device_ms"] += (end - start) / 1e6
+    ops = sorted((a, b) for _, a, b, name in device if name not in spans)
+    for name, rec in spans.items():
+        check(rec["host_ms"] > 0, f"span {name} not seen by the profiler")
+    return spans, union_ms(ops, 1e6), len(ops), calls, call_ms
+
+
+def read_timed(prof, kernel=None):
+    """The records of device_ms's timed calls, read straight from the
+    profile's kineto results (see read_profile): {correlation id: (name,
+    thread)} of the host calls that put work on the card (LAUNCH_CALL)
+    inside the TIMED_SPAN host span, the (correlation id, start ns, end ns)
+    of their device records, and the (start ns, end ns) of those of the
+    CUDA kernel named ``kernel`` (its demangled name)."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    lo, hi = next((e.start_ns(), e.end_ns()) for e in events
+                  if e.name() == TIMED_SPAN and e.device_type() != cuda)
+    calls = {e.correlation_id(): (e.name(), e.start_thread_id())
+             for e in events
+             if e.device_type() != cuda and LAUNCH_CALL.match(e.name())
+             and lo <= e.start_ns() <= hi}
+    timed, own = [], []
+    for e in events:
+        if (e.device_type() == cuda and e.correlation_id() in calls
+                and not e.is_user_annotation()):
+            timed.append((e.correlation_id(), e.start_ns(), e.end_ns()))
+            if (kernel is not None
+                    and f"{kernel}<" in torch._C._demangle(e.name())):
+                own.append(timed[-1][1:])
+    return calls, timed, own
 
 
 class IncompleteProfile(RuntimeError):
@@ -281,7 +360,6 @@ def device_ms(fn, kernel=None, reps=REPS, launches=1):
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    cuda = torch.autograd.DeviceType.CUDA
     fn()
     for attempt in range(PROFILE_TRIES):
         torch.cuda.synchronize()
@@ -297,33 +375,22 @@ def device_ms(fn, kernel=None, reps=REPS, launches=1):
             time.sleep(PROFILE_PAUSE_S)
             fn()
             torch.cuda.synchronize()
-        events = prof.events()
-        span = next(e.time_range for e in events
-                    if e.name == TIMED_SPAN and e.device_type != cuda)
-        calls = {e.id: e.name for e in events
-                 if e.device_type != cuda and LAUNCH_CALL.match(e.name)
-                 and span.start <= e.time_range.start <= span.end}
-        timed = [e for e in events
-                 if e.device_type == cuda and e.id in calls
-                 and not getattr(e, "is_user_annotation", False)]
-        own = [e for e in timed if kernel is not None
-               and f"{kernel}<" in e.name]
+        calls, timed, own = read_timed(prof, kernel)
         missing = collections.Counter(
-            calls.values()) - collections.Counter(calls[e.id] for e in timed)
+            name for name, _ in calls.values()) - collections.Counter(
+                calls[c][0] for c, _, _ in timed)
         if (calls and not missing
                 and (kernel is None or len(own) == reps * launches)):
             kernel_ms = (None if kernel is None else
-                         sum(e.time_range.elapsed_us() for e in own) / 1e3
-                         / reps)
-            return busy_ms(timed) / reps, kernel_ms
-        recorded = {e.id for e in timed}
-        lost = [(e.name, e.thread, getattr(e.cpu_parent, "name", None))
-                for e in events if e.device_type != cuda and e.id in calls
-                and e.id not in recorded][:8]
+                         sum(b - a for a, b in own) / 1e6 / reps)
+            return union_ms(sorted((a, b) for _, a, b in timed),
+                            1e6) / reps, kernel_ms
+        recorded = {c for c, _, _ in timed}
+        lost = [call for c, call in calls.items() if c not in recorded][:8]
         print(f"device_ms: profile {attempt} of {kernel or 'a call'} "
               f"incomplete: {len(timed)} device records for {len(calls)} "
               f"launch calls, {len(own)} of {kernel}; calls without a "
-              f"record: {dict(missing)}; (call, thread, op): {lost}",
+              f"record: {dict(missing)}; (call, thread): {lost}",
               file=sys.stderr, flush=True)
     raise IncompleteProfile(f"device_ms: {PROFILE_TRIES} incomplete "
                             f"profiles of {kernel or 'a call'} in {reps} "
@@ -800,17 +867,9 @@ def phase_stages(device="cuda"):
         t0 = time.perf_counter()
         run()
         profiled_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    spans = {name: dict(host_ms=0.0, device_ms=0.0) for name in H.SPANS}
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CPU and e.name in spans:
-            spans[e.name]["host_ms"] += e.time_range.elapsed_us() / 1e3
-            spans[e.name]["device_ms"] += e.device_time_total / 1e3
-    for name, rec in spans.items():
-        check(rec["host_ms"] > 0, f"span {name} not seen by the profiler")
+    spans, busy, _, _, _ = read_profile(prof, H.SPANS)
     check(spans["lssvr_enhance"]["device_ms"] > 0,
           "the profiler attributed no device time to lssvr_enhance")
-    busy = busy_ms(events, skip=H.SPANS)
     host_total = sum(r["host_ms"] for r in spans.values())
     tri = spans["fem_solve.tridiag"]
     emit("stages", run=label, E=E_MAIN, wall_ms=wall_ms,
@@ -1251,24 +1310,10 @@ def phase_stages_2d(device="cuda"):
         t0 = time.perf_counter()
         run()
         profiled_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    cpu = torch.autograd.DeviceType.CPU
-    spans = {name: dict(host_ms=0.0, device_ms=0.0) for name in H2.SPANS}
-    reads, read_ms = 0, 0.0
-    for e in events:
-        if e.device_type != cpu:
-            continue
-        if e.name in spans:
-            spans[e.name]["host_ms"] += e.time_range.elapsed_us() / 1e3
-            spans[e.name]["device_ms"] += e.device_time_total / 1e3
-        elif e.name == "aten::item":
-            reads += 1
-            read_ms += e.time_range.elapsed_us() / 1e3
-    for name, rec in spans.items():
-        check(rec["host_ms"] > 0, f"span {name} not seen by the profiler")
+    spans, busy, _, reads, read_ms = read_profile(prof, H2.SPANS,
+                                                  count="aten::item")
     check(spans["enhance_2d"]["device_ms"] > 0,
           "the profiler attributed no device time to enhance_2d")
-    busy = busy_ms(events, skip=H2.SPANS)
     emit("stages_2d", run="poisson_2d", nx=N2D, ny=N2D, wall_ms=wall_ms,
          profiled_wall_ms=profiled_ms, device_busy_ms=busy,
          device_idle_share=1.0 - busy / wall_ms, cg_iters=iters[-1],
@@ -1731,21 +1776,9 @@ def profile_stages(phase, label, solve, pts, span_names, enhance_span,
         t0 = time.perf_counter()
         run()
         profiled_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    cpu = torch.autograd.DeviceType.CPU
-    spans = {name: dict(host_ms=0.0, device_ms=0.0) for name in span_names}
-    launches = 0
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            launches += e.name not in spans
-        elif e.device_type == cpu and e.name in spans:
-            spans[e.name]["host_ms"] += e.time_range.elapsed_us() / 1e3
-            spans[e.name]["device_ms"] += e.device_time_total / 1e3
-    for name, rec in spans.items():
-        check(rec["host_ms"] > 0, f"span {name} not seen by the profiler")
+    spans, busy, launches, _, _ = read_profile(prof, span_names)
     check(spans[enhance_span]["device_ms"] > 0,
           f"the profiler attributed no device time to {enhance_span}")
-    busy = busy_ms(events, skip=span_names)
     emit(phase, run=label, **fields, wall_ms=wall_ms,
          profiled_wall_ms=profiled_ms, device_busy_ms=busy,
          device_idle_share=1.0 - busy / wall_ms, cg_iters=iters[-1],
@@ -2396,18 +2429,7 @@ def phase_stages_families(device="cuda"):
         t0 = time.perf_counter()
         run()
         profiled_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    spans = {n: dict(host_ms=0.0, device_ms=0.0) for n in B.SPANS}
-    launches = 0
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            launches += e.name not in spans
-        elif e.name in spans:
-            spans[e.name]["host_ms"] += e.time_range.elapsed_us() / 1e3
-            spans[e.name]["device_ms"] += e.device_time_total / 1e3
-    for n, rec in spans.items():
-        check(rec["host_ms"] > 0, f"span {n} not seen by the profiler")
-    busy = busy_ms(events, skip=B.SPANS)
+    spans, busy, launches, _, _ = read_profile(prof, B.SPANS)
     emit("stages_families", run=label, P=P_FAM, E=EF_FAM, wall_ms=wall_ms,
          profiled_wall_ms=profiled_ms, device_busy_ms=busy,
          device_idle_share=1.0 - busy / wall_ms, device_ops=launches,
@@ -3779,6 +3801,428 @@ def transient_phases(device="cuda"):
           f"{launched}")
 
 
+# The distributed solves (parallel/): SHARDED_RANKS ranks on the one card
+# under gloo (NCCL refuses two ranks on one card; the collectives stage
+# each tensor through host memory), and one rank under NCCL.  Ranks that
+# share a card measure no multi-GPU scaling.  Every sharded result is held
+# against the single-device solve of the same configuration on the card:
+# coefficients within SHARDED_COEFF_REL of their size (float32
+# enhancement over a float64 coarse stage on both sides), Linf at the
+# single-device phase's gate, solve_ok everywhere, a converged coarse
+# solve.  The graded 3D path runs at NG3D^3, as main_path_graded_3d.
+SHARDED_RANKS = 4
+SHARDED_COEFF_REL = 1e-5
+SHARDED_PG_TIMEOUT_S = 240
+SHARDED_JOIN_S = 420
+SHARDED_WARMUP_E = 4096
+
+
+def sharded_cases(world):
+    """(label, dict) of the distributed paths: the 1D SPIKE solve through
+    separable_kernel (poisson_1d) and varcoeff_kernel in graded mode
+    (variable_coeff_elliptic) a rank; with four ranks also poisson_2d on
+    y-slabs and on the 2 x 2 grid, the graded 2D solve on y-slabs, and
+    poisson_3d on z-slabs, on the 2 x 2 (z, y) grid and graded z-slabs."""
+    from hybrid_fem_lssvr_tpu_torch import (Solver2DConfig, Solver3DConfig,
+                                            SolverConfig, problems)
+
+    cfg1 = SolverConfig(num_nodes=E_MAIN + 1, M=M, gamma=1e4, n_colloc=C,
+                        dtype="float32", fem_dtype="float64")
+    cases = [(f"1d/{name}", dict(dim=1, problem=problems.get(name),
+                                 cfg=cfg1, mesh="line", gate=GATES[name]))
+             for name in ("poisson_1d", "variable_coeff_elliptic")]
+    if world == 1:
+        return cases
+    cfg2 = Solver2DConfig(nx=N2D, ny=N2D, M=M2D, n_colloc=C2D,
+                          dtype="float32", fem_dtype="float64")
+    cfg2g = dataclasses.replace(cfg2, nx=NG, ny=NG,
+                                cg_maxiter=GRADED_CG_MAXITER)
+    cfg3 = Solver3DConfig(nx=N3D, ny=N3D, nz=N3D, M=M3D, n_colloc=C3D,
+                          dtype="float32", fem_dtype="float64",
+                          precond="mg")
+    cfg3g = dataclasses.replace(cfg3, nx=NG3D, ny=NG3D, nz=NG3D,
+                                precond="jacobi",
+                                cg_maxiter=GRADED3D_CG_MAXITER)
+    g2 = GATES_2D["poisson_2d"]
+    g3 = GATES_3D["poisson_3d"]
+    return cases + [
+        ("2d/slab", dict(dim=2, cfg=cfg2, mesh="line", gate=g2)),
+        ("2d/grid", dict(dim=2, cfg=cfg2, mesh="grid", gate=g2)),
+        ("2d/graded", dict(dim=2, cfg=cfg2g, mesh="line", graded=True,
+                           gate=GATES_GRADED["poisson_2d"])),
+        ("3d/slab", dict(dim=3, cfg=cfg3, mesh="line", gate=g3)),
+        ("3d/grid", dict(dim=3, cfg=cfg3, mesh="grid3", gate=g3)),
+        ("3d/graded", dict(dim=3, cfg=cfg3g, mesh="line", graded=True,
+                           gate=GATES_NEW["poisson_3d_graded"])),
+    ]
+
+
+def sharded_entry(case, mesh, device):
+    """(solve callable, evaluate callable, query points, exact-solution
+    function, twin) of one distributed path; the twin solves the same
+    configuration on one device and returns (solver, solution)."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch import (HybridSolver, HybridSolver2D,
+                                            HybridSolver2DGraded,
+                                            HybridSolver3D,
+                                            HybridSolver3DGraded,
+                                            get_problem_2d, get_problem_3d)
+    from hybrid_fem_lssvr_tpu_torch.parallel import sharded
+    from hybrid_fem_lssvr_tpu_torch.parallel import sharded2d as S2
+    from hybrid_fem_lssvr_tpu_torch.parallel import sharded3d as S3
+
+    cfg, dim = case["cfg"], case["dim"]
+    torch_cfg = dataclasses.replace(cfg, backend="torch")
+    if dim == 1:
+        problem = case["problem"]
+        pts = (torch.linspace(-1.0, 1.0, DENSE_POINTS, dtype=torch.float32,
+                              device=device),)
+        return (sharded.make_sharded_solve(problem, cfg, mesh, device=device,
+                                           enhance_backend="cuda"),
+                sharded.make_sharded_evaluate(problem, cfg, mesh,
+                                              device=device),
+                pts, problem.exact,
+                lambda: HybridSolver(problem, cfg, device=device))
+    if dim == 2:
+        problem = get_problem_2d("poisson_2d")
+        pts = tuple(p.to(device) for p in points_2d())
+        if case.get("graded"):
+            xs, ys = graded_mesh(cfg.nx)
+            return (S2.make_sharded_solve_2d_graded(problem, cfg, mesh, xs,
+                                                    ys, device=device),
+                    S2.make_sharded_evaluate_2d_graded(cfg, mesh, xs, ys,
+                                                       device=device),
+                    pts, problem.exact,
+                    lambda: HybridSolver2DGraded(problem, torch_cfg, xs, ys,
+                                                 device=device))
+        grid = case["mesh"] == "grid"
+        solve = (S2.make_sharded_solve_2d_grid if grid
+                 else S2.make_sharded_solve_2d)
+        ev = (S2.make_sharded_evaluate_2d_grid if grid
+              else S2.make_sharded_evaluate_2d)
+        return (solve(problem, cfg, mesh, device=device),
+                ev(problem, cfg, mesh, device=device), pts, problem.exact,
+                lambda: HybridSolver2D(problem, torch_cfg, device=device))
+    problem = get_problem_3d("poisson_3d")
+    pts = tuple(p.to(device) for p in points_3d())
+    if case.get("graded"):
+        nodes = graded_axis_nodes(cfg.nx, -1.0, 1.0, GRADED_POWER)
+        xyz = (nodes, nodes, nodes)
+        return (S3.make_sharded_solve_3d_graded(problem, cfg, mesh, *xyz,
+                                                device=device),
+                S3.make_sharded_evaluate_3d_graded(cfg, mesh, *xyz,
+                                                   device=device),
+                pts, problem.exact,
+                lambda: HybridSolver3DGraded(problem, torch_cfg, *xyz,
+                                             device=device))
+    grid = case["mesh"] == "grid3"
+    solve = (S3.make_sharded_solve_3d_grid if grid
+             else S3.make_sharded_solve_3d)
+    ev = (S3.make_sharded_evaluate_3d_grid if grid
+          else S3.make_sharded_evaluate_3d)
+    return (solve(problem, cfg, mesh, device=device),
+            ev(problem, cfg, mesh, device=device), pts, problem.exact,
+            lambda: HybridSolver3D(problem, torch_cfg, device=device))
+
+
+def sharded_nodal(dim, sol):
+    """The gathered solution's nodal grid (1D: the nodal vector)."""
+    import torch
+
+    if dim == 1:
+        fl = sol.fem_local
+        return torch.cat([fl[:, :-1].reshape(-1), fl[-1, -1:]])
+    return torch.as_tensor(sol.assemble_fem_grid())
+
+
+def shard_plain_errors(case, sol, d, world):
+    """This rank's 1D shard outputs (w, slack, bcv) against the kernel's
+    plain version on the shard's own inputs: its nodal values, its left
+    edge (separable_kernel) or its nodes (varcoeff_kernel in graded mode,
+    through the same finalize as the shard)."""
+    import torch
+
+    from hybrid_fem_lssvr_tpu_torch.models.hybrid import (
+        _kernel_finalize, prepare_shared_host)
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels as K
+    from hybrid_fem_lssvr_tpu_torch.parallel import sharded
+
+    problem, cfg = case["problem"], case["cfg"]
+    device, dtype = sol.coeffs.device, cfg.torch_dtype()
+    E_total = cfg.num_nodes - 1
+    E_loc = -(-E_total // world)
+    x0, x1 = problem.domain
+    h = (x1 - x0) / E_total
+    fem = sol.fem_local[0]
+    shared = prepare_shared_host(problem, cfg)
+    if shared is not None:
+        want = K.fused_enhance_separable_ref(
+            fem, shared.to(device), problem.f_elem_factors,
+            sharded.shard_x0(x0, d, E_loc, h, dtype), h,
+            with_fallback=True)[:3]
+        kname, tols = "separable_kernel", (W_TOL, SLACK_TOL, BCV_TOL)
+    else:
+        nodes = sharded._local_nodes(problem, E_total, E_loc, d,
+                                     getattr(torch, cfg.fem_dtype),
+                                     device).to(dtype)
+        host = K.VarCoeffOperators.host(cfg.M, cfg.n_colloc, h,
+                                        dtype).to(device)
+        w, slack, bcv, cond = K.fused_enhance_varcoeff_ref(
+            fem, problem, host, x0, h, cfg.n_colloc,
+            with_diagnostics=cfg.diagnostics, nodes=nodes)
+        w, diags = _kernel_finalize(w, slack, bcv, fem[:-1], fem[1:], cfg,
+                                    cond=cond)
+        want = (w, diags.max_slack, diags.bc_violation)
+        kname, tols = "varcoeff_kernel", (GRADED_TOL, None, BCV_TOL)
+    got = (sol.coeffs, sol.max_slack, sol.bc_violation)
+    out = {"kernel": kname, "shape_ok": all(
+        tuple(g.shape) == tuple(w.shape) for g, w in zip(got, want))}
+    for what, g, w, tol in zip(("w", "slack", "bcv"), got, want, tols):
+        out[f"{what}_max_abs_err"] = max_err(g, w)
+        out[f"{what}_tol"] = tol
+        if what != "w":
+            mean = float(w.mean())
+            out[f"{what}_size"], out[f"{what}_mean"] = float(w.max()), mean
+            out[f"{what}_mean_ratio"] = (float(g.mean()) / mean if mean
+                                         else float("nan"))
+    out["slack_rel"] = SLACK_REL[kname]
+    return out
+
+
+def check_shard_plain(label, backend, rank, rec):
+    """The gates of phase_kernels on one shard's ``shard_plain_errors``."""
+    tag = f"{label} ({backend}, rank {rank}) {rec['kernel']}"
+    check(rec["shape_ok"], f"{tag}: shapes differ from the plain version")
+    for what in ("w", "slack", "bcv"):
+        err, tol = rec[f"{what}_max_abs_err"], rec[f"{what}_tol"]
+        check(tol is None or err <= tol, f"{tag}: {what} max abs err {err} "
+              f"> {tol}")
+    for what, rel in (("slack", rec["slack_rel"]), ("bcv", BCV_REL)):
+        check(rec[f"{what}_mean"] > 0, f"{tag}: the plain version's {what} "
+              f"is zero")
+        err, size = rec[f"{what}_max_abs_err"], rec[f"{what}_size"]
+        check(err <= rel * size, f"{tag}: {what} differs from the plain "
+              f"version by {err}, more than {rel} of its largest value "
+              f"{size}")
+        ratio = rec[f"{what}_mean_ratio"]
+        check(MEAN_RATIO[0] < ratio < MEAN_RATIO[1], f"{tag}: mean {what} "
+              f"is {ratio} of the plain version's")
+
+
+def sharded_worker(rank, world, backend, init_file, out_dir):
+    """One rank of main_path_sharded: joins the process group, runs every
+    distributed path (each rank holds its 1D shards against the kernels'
+    plain versions; rank 0 solves each path's single-device twin and
+    compares), saves rank 0's records and every rank's launch counts and
+    shard checks."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels as K
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d as K2
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels2d_graded as KG
+    from hybrid_fem_lssvr_tpu_torch.ops import kernels3d as K3
+    from hybrid_fem_lssvr_tpu_torch.parallel import collectives as col
+    from hybrid_fem_lssvr_tpu_torch.parallel import mesh as pm
+    from hybrid_fem_lssvr_tpu_torch.parallel import sharded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dist.init_process_group(
+        backend, init_method=f"file://{init_file}", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=SHARDED_PG_TIMEOUT_S))
+    try:
+        meshes = {"line": pm.element_mesh()}
+        if world == 4:
+            meshes["grid"] = pm.grid_mesh(2, 2)
+            meshes["grid3"] = pm.grid_mesh_3d(2, 2)
+        device = pm.mesh_device(None)
+        cases = sharded_cases(world)
+        # Warm-up: both 1D kernels once a rank on a small mesh.
+        for label, case in cases[:2]:
+            small = dataclasses.replace(case["cfg"],
+                                        num_nodes=SHARDED_WARMUP_E + 1)
+            sharded.make_sharded_solve(case["problem"], small,
+                                       meshes["line"], device=device)()
+        mods = (K, K2, KG, K3)
+        for mod in mods:
+            mod.reset_launch_counts()
+        records, launched, shards = [], {}, {}
+        for label, case in cases:
+            mesh = meshes[case["mesh"]]
+            run, evaluate, pts, exact, twin = sharded_entry(case, mesh,
+                                                            device)
+            before = {k: v for mod in mods
+                      for k, v in mod.launch_counts().items()}
+            dist.barrier()
+            t0 = time.perf_counter()
+            sol = run()
+            torch.cuda.synchronize(device)
+            dist.barrier()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            after = {k: v for mod in mods
+                     for k, v in mod.launch_counts().items()}
+            launched[label] = {k: after[k] - before[k] for k in after
+                               if after[k] != before[k]}
+            u = evaluate(sol.coeffs, *pts)
+            g = col.gather_solution(sol, mesh)
+            if case["dim"] == 1:
+                shards[label] = shard_plain_errors(
+                    case, sol, col.axis_index(mesh, "elements"), world)
+            del sol
+            if rank == 0:
+                records.append(sharded_compare(label, case, g, u, pts,
+                                               exact, twin, wall_ms, world,
+                                               backend))
+            del g, u
+            torch.cuda.empty_cache()
+            dist.barrier()
+        tag = f"{backend}_{world}"
+        with open(os.path.join(out_dir, f"counts_{tag}_{rank}.json"),
+                  "w") as fh:
+            json.dump({"launched": launched, "shards": shards}, fh)
+        if rank == 0:
+            with open(os.path.join(out_dir, f"records_{tag}.json"),
+                      "w") as fh:
+                json.dump(records, fh)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_compare(label, case, g, u, pts, exact, twin, wall_ms, world,
+                    backend):
+    """Rank 0's record of one distributed path against its single-device
+    twin, solved here on the same device."""
+    import torch
+
+    dim, cfg = case["dim"], case["cfg"]
+    device = u.device
+    linf = float(torch.max(torch.abs(u - exact(*pts) * torch.ones_like(u))))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = twin()
+    ref = s.solve()
+    torch.cuda.synchronize()
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    twin_linf = float(s.errors(*pts)[0])
+    coeffs = g.coeffs.to(device)
+    scale = float(torch.max(torch.abs(ref.coeffs)))
+    coeff_rel = float(torch.max(torch.abs(coeffs - ref.coeffs))) / scale
+    nodal = sharded_nodal(dim, g).to(device)
+    fem = ref.fem_values.reshape(nodal.shape) if dim == 1 else \
+        ref.fem_values
+    nodal_err = float(torch.max(torch.abs(nodal[tuple(
+        slice(0, n) for n in fem.shape)] - fem)))
+    rec = dict(run=label, ranks=world, backend=backend,
+               shape=list(coeffs.shape), wall_ms=wall_ms,
+               twin_wall_ms=twin_ms, linf=linf, twin_linf=twin_linf,
+               gate=case["gate"], coeff_rel_err=coeff_rel,
+               coeff_tol=SHARDED_COEFF_REL, nodal_max_abs_err=nodal_err,
+               solve_ok=bool(g.solve_ok.all()),
+               finite=bool(torch.isfinite(coeffs).all()),
+               shape_ok=tuple(coeffs.shape) == tuple(ref.coeffs.shape))
+    if dim > 1:
+        iters = g.cg_iters.reshape(-1).tolist()
+        rec.update(cg_iters=iters, twin_cg_iters=int(ref.cg_iters),
+                   cg_maxiter=cfg.cg_maxiter,
+                   cg_residual=float(g.cg_residual.reshape(-1)[0]),
+                   converged=(len(set(iters)) == 1
+                              and iters[0] < cfg.cg_maxiter))
+    return rec
+
+
+def phase_main_path_sharded():
+    """The distributed solves of parallel/ on the one card: SHARDED_RANKS
+    spawned ranks under gloo (every path), then one rank under NCCL in
+    this process (the 1D paths).  Returns the launches of separable_kernel
+    and varcoeff_kernel on those paths, which must be one a rank a 1D
+    solve; every path must meet its gates against its single-device
+    twin, and every 1D shard its kernel's plain version on the shard's
+    inputs."""
+    import multiprocessing as mp
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="sharded_")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=sharded_worker,
+                         args=(r, SHARDED_RANKS, "gloo",
+                               os.path.join(tmp, "pg_gloo"), tmp))
+             for r in range(SHARDED_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARDED_JOIN_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(5)
+    check(not alive, f"main_path_sharded: ranks {alive} still running "
+          f"after {SHARDED_JOIN_S} s")
+    codes = {r: p.exitcode for r, p in enumerate(procs)}
+    check(not any(codes.values()), f"main_path_sharded: rank exit codes "
+          f"{codes}")
+    gloo_s = time.perf_counter() - t_phase
+    t1 = time.perf_counter()
+    sharded_worker(0, 1, "nccl", os.path.join(tmp, "pg_nccl_1"), tmp)
+    single_s = time.perf_counter() - t1
+    counts = {"fused_enhance_separable": 0, "fused_enhance_varcoeff": 0}
+    for backend, world in (("gloo", SHARDED_RANKS), ("nccl", 1)):
+        with open(os.path.join(tmp, f"records_{backend}_{world}.json")) as fh:
+            records = json.load(fh)
+        for rec in records:
+            emit("main_path_sharded", note="ranks share one card: no "
+                 "multi-GPU scaling", **rec)
+            label = rec["run"]
+            check(rec["shape_ok"] and rec["finite"], f"{label} "
+                  f"({backend}): coeffs shape {rec['shape']} or non-finite")
+            check(rec["solve_ok"], f"{label} ({backend}): elements fell "
+                  f"back")
+            check(rec["linf"] < rec["gate"], f"{label} ({backend}): Linf "
+                  f"{rec['linf']} >= gate {rec['gate']}")
+            check(rec["coeff_rel_err"] <= SHARDED_COEFF_REL, f"{label} "
+                  f"({backend}): coeffs {rec['coeff_rel_err']} of their "
+                  f"size from the single-device solve")
+            check(rec.get("converged", True), f"{label} ({backend}): the "
+                  f"distributed coarse solve did not converge: "
+                  f"{rec.get('cg_iters')}")
+        for r in range(world):
+            with open(os.path.join(tmp, f"counts_{backend}_{world}_{r}.json")
+                      ) as fh:
+                saved = json.load(fh)
+            launched = saved["launched"]
+            check(sorted(saved["shards"]) == ["1d/poisson_1d",
+                                              "1d/variable_coeff_elliptic"],
+                  f"{backend} rank {r}: shard checks {sorted(saved['shards'])}")
+            for label, rec in saved["shards"].items():
+                emit("main_path_sharded_shard", run=label, backend=backend,
+                     rank=r, **rec)
+                check_shard_plain(label, backend, rank=r, rec=rec)
+            for label, got in launched.items():
+                want = {}
+                if label == "1d/poisson_1d":
+                    want = {"fused_enhance_separable": 1}
+                elif label == "1d/variable_coeff_elliptic":
+                    want = {"fused_enhance_varcoeff": 1}
+                check(got == want, f"{label} ({backend}, rank {r}): "
+                      f"launches {got}, want {want}")
+                for k, n in got.items():
+                    counts[k] += n
+    emit("launch_counts_sharded", gloo_ranks=SHARDED_RANKS, nccl_ranks=1,
+         gloo_s=gloo_s, nccl_s=single_s,
+         phase_s=time.perf_counter() - t_phase, **counts)
+    return counts
+
+
 IDENTITY_CHILD = r"""
 import functools, json, sys
 import torch
@@ -3864,6 +4308,9 @@ def main():
         return
 
     phase_build()
+    if "--sharded" in sys.argv:
+        emit("sharded_only", **phase_main_path_sharded())
+        return
     summary = phase_kernels()
     torch.cuda.synchronize()
     summary["fused_enhance_varcoeff"].update(phase_kernels_family())
@@ -3921,6 +4368,10 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     transient_phases()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for kname, n in phase_main_path_sharded().items():
+        counts[kname] += n
 
     check(sorted(summary) == sorted(KERNELS), f"kernels checked: "
           f"{sorted(summary)}")

@@ -123,14 +123,16 @@ def fem_solve(problem: Problem1D, nodes: torch.Tensor, cfg: SolverConfig):
         return tridiag.solve(sub, main, sup, rhs, method=cfg.tridiag_method)
 
 
-def _element_data(problem: Problem1D, nodes, fem_values, cfg: SolverConfig):
+def _element_data(problem: Problem1D, nodes, fem_values, cfg: SolverConfig,
+                  touches_left: bool = True, touches_right: bool = True):
     """Per-element collocation data: mapped points, rhs, endpoint values
     (nodes [..., N]: leading axes are a family of meshes).
 
     Boundary elements pin to the global Dirichlet data (by position, not
-    float equality); Neumann / Robin ends keep the FEM nodal value.  (The
-    JAX version's ``touches_left/right`` flags serve its sharded solves,
-    which are not ported yet.)
+    float equality); Neumann / Robin ends keep the FEM nodal value.
+    ``touches_left``/``touches_right``: whether the first/last local element
+    touches the domain boundary (a shard of the distributed solve owns a
+    boundary element only at an edge of the mesh).
     """
     dtype, device = nodes.dtype, nodes.device
     xl, xr = nodes[..., :-1], nodes[..., 1:]
@@ -141,9 +143,9 @@ def _element_data(problem: Problem1D, nodes, fem_values, cfg: SolverConfig):
 
     u_left = fem_values[..., :-1].clone()
     u_right = fem_values[..., 1:].clone()
-    if problem.bc_left == "dirichlet":
+    if problem.bc_left == "dirichlet" and touches_left:
         u_left[..., 0] = problem.g_left
-    if problem.bc_right == "dirichlet":
+    if problem.bc_right == "dirichlet" and touches_right:
         u_right[..., -1] = problem.g_right
     bc = torch.stack([u_left, u_right], dim=-1)  # [E, 2]
     return x_colloc, f_colloc, bc, h, u_left, u_right
@@ -231,8 +233,12 @@ def _kernel_finalize(w, slack, bcv, u_left, u_right, cfg, cond=None):
 
 
 def lssvr_enhance(problem: Problem1D, nodes, fem_values, cfg: SolverConfig,
-                  shared_ops=None, uniform_geom=None):
+                  shared_ops=None, uniform_geom=None, touches_left=True,
+                  touches_right=True):
     """Batched enhancement of all elements -> (w [E, M], KKTDiagnostics).
+
+    ``touches_left``/``touches_right`` (torch route): whether the first /
+    last element touches the domain boundary, as in ``_element_data``.
 
     ``uniform_geom``: (x0, h) Python floats when the mesh is uniform; with
     the 'cuda' backend it selects the shared-operator kernels (constant
@@ -302,7 +308,7 @@ def lssvr_enhance(problem: Problem1D, nodes, fem_values, cfg: SolverConfig,
             cfg, cond=cond), lead)
 
     x_colloc, f_colloc, bc, h, u_left, u_right = _element_data(
-        problem, nodes, fem_values, cfg)
+        problem, nodes, fem_values, cfg, touches_left, touches_right)
     if shared_ops is not None:
         w, diags = kkt.solve_primal_shared(shared_ops, f_colloc, bc)
     else:

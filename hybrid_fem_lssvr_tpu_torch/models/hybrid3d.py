@@ -446,18 +446,20 @@ def prepare_shared_3d(problem: Problem3D, cfg: Solver3DConfig):
 
 def _varcoeff_mg_levels_3d(problem: Problem3D, hx: float, hy: float,
                            hz: float, dtype, device=None,
-                           c_override: float = None):
+                           c_override: float = None, lvl_offset: int = 0):
     """``apply_diag_for_level(lvl, shape)`` factory for
     ``multigrid.make_vcycle_3d`` with variable diffusion: exact per-level
     rediscretisation by re-sampling the coefficient callable at each
-    level's own quadrature points."""
+    level's own quadrature points.  Level ``lvl`` sits at spacing
+    ``h * 2**(lvl + lvl_offset)`` (the distributed V-cycle's gathered
+    coarse levels start one below the fine grid)."""
     x0d, y0d, z0d = problem.domain[0], problem.domain[2], problem.domain[4]
     bx, by, bz = problem.b
     c_eff = problem.c if c_override is None else c_override
     has_const = c_eff != 0.0 or bx != 0.0 or by != 0.0 or bz != 0.0
 
     def apply_diag_for_level(lvl, shape):
-        s = float(2 ** lvl)
+        s = float(2 ** (lvl + lvl_offset))
         Sq_l, dxq, dyq, dzq = assembly3d.q1_varcoeff_parts_3d(
             hx * s, hy * s, hz * s)
 
@@ -738,15 +740,22 @@ def fem_solve_3d(problem: Problem3D, cfg: Solver3DConfig, xs, ys, zs):
 
 
 def _element_data_3d(problem: Problem3D, cfg: Solver3DConfig, xs, ys, zs,
-                     fem_values, t_int, spts, trace_lift: int = 0,
-                     skip_f: bool = False):
+                     fem_values, t_int, spts, layer_offset=0, row_offset=0,
+                     trace_lift: int = 0, skip_f: bool = False,
+                     trace_rows=None):
     """Per-element collocation rhs [E, C^3] (interior points) and
     boundary-trace values [E, S]: the trilinear FEM trace at the surface
     points, overridden by g on the Dirichlet faces of the domain (natural
     faces keep the FEM trace); ``trace_lift >= 2`` replaces the trilinear
     trace with the plane lift (``_lifted_trace_3d``).  Also returns the
     eight corner-value views.  ``skip_f=True`` skips the collocation rows
-    (returned as None) for trace-only callers such as the time marches."""
+    (returned as None) for trace-only callers such as the time marches.
+
+    ``zs``/``fem_values`` may be a local z-slab (and ``ys`` a local row
+    block): ``layer_offset`` / ``row_offset`` are then its global first
+    element layer / row, used for the domain-boundary masks, and slab
+    callers pass ``trace_rows`` [nz_loc, ny_loc, nx, S] lifted on the whole
+    grid instead of ``trace_lift``."""
     dtype, device = xs.dtype, xs.device
     C = cfg.n_colloc
     nx, ny, nz = xs.shape[0] - 1, ys.shape[0] - 1, zs.shape[0] - 1
@@ -771,7 +780,9 @@ def _element_data_3d(problem: Problem3D, cfg: Solver3DConfig, xs, ys, zs,
     cs = assembly3d._corners_3d(fem_values)  # a = 4cz + 2cy + cx
     sp = torch.tensor(np.asarray(spts), dtype=dtype, device=device)
     tzp, typ, txp = sp[:, 0], sp[:, 1], sp[:, 2]
-    if trace_lift >= 2:
+    if trace_rows is not None:
+        trace = trace_rows  # [nz, ny, nx, S] precomputed (global windows)
+    elif trace_lift >= 2:
         trace = _lifted_trace_3d(fem_values, cfg.M, nx, ny, nz,
                                  stencil=trace_lift).reshape(nz, ny, nx, -1)
     else:
@@ -788,8 +799,8 @@ def _element_data_3d(problem: Problem3D, cfg: Solver3DConfig, xs, ys, zs,
     # Domain-boundary override: surface points on Dirichlet faces of
     # boundary elements take g exactly.
     ex = torch.arange(nx, device=device)
-    ey = torch.arange(ny, device=device)
-    ez = torch.arange(nz, device=device)
+    ey = row_offset + torch.arange(ny, device=device)
+    ez = layer_offset + torch.arange(nz, device=device)
     xm, ym, zm = (0.5 * (v[1:] + v[:-1]) for v in (xs, ys, zs))
     xp = (xm[:, None] + 0.5 * hx[:, None] * txp[None, :])[None, None, :, :]
     yp = (ym[:, None] + 0.5 * hy[:, None] * typ[None, :])[None, :, None, :]

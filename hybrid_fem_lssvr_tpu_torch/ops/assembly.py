@@ -84,6 +84,41 @@ def assemble_p1(nodes, a_fn, b_fn, c_fn, f_fn, quad_order: int = 3):
     return sub, main, sup, rhs
 
 
+def element_contributions(nodes, a_fn, b_fn, c_fn, f_fn, quad_order: int = 3):
+    """Per-element 2x2 stiffness blocks and 2-vector loads, unscattered.
+
+    Returns (K [E, 2, 2] (test i, trial j), b [E, 2]); the distributed
+    assembly (``parallel/sharded.py``) sums the interface contributions
+    across shards before it forms its rows.
+    """
+    dtype, device = nodes.dtype, nodes.device
+    tq, wq = gauss_rule(quad_order)
+    tq = torch.tensor(tq, dtype=dtype, device=device)
+    wq = torch.tensor(wq, dtype=dtype, device=device)
+    xl, xr = nodes[:-1], nodes[1:]
+    h = xr - xl
+    xq = 0.5 * (xl + xr)[:, None] + 0.5 * h[:, None] * tq[None, :]
+    Wq = 0.5 * h[:, None] * wq[None, :]
+    aq = a_fn(xq) * torch.ones_like(xq) if a_fn is not None \
+        else torch.zeros_like(xq)
+    bq = b_fn(xq) * torch.ones_like(xq) if b_fn is not None else None
+    cq = c_fn(xq) * torch.ones_like(xq) if c_fn is not None else None
+    fq = f_fn(xq) * torch.ones_like(xq)
+    phi = torch.stack([0.5 * (1.0 - tq), 0.5 * (1.0 + tq)])  # [2, Q]
+    dphi = torch.stack([-1.0 / h, 1.0 / h], dim=1)[:, :, None]  # [E, 2, 1]
+    phiE = phi[None].expand(h.shape[0], 2, tq.shape[0])
+    term = aq[:, None, None, :] * dphi[:, None, :, :] * dphi[:, :, None, :]
+    if bq is not None:
+        term = term + (bq[:, None, None, :] * dphi[:, None, :, :]
+                       * phiE[:, :, None, :])
+    if cq is not None:
+        term = term + (cq[:, None, None, :] * phiE[:, None, :, :]
+                       * phiE[:, :, None, :])
+    K = torch.sum(Wq[:, None, None, :] * term, dim=-1)
+    bvec = torch.sum(Wq[:, None, :] * fq[:, None, :] * phiE, dim=-1)
+    return K, bvec
+
+
 def apply_dirichlet(sub, main, sup, rhs, g_left, g_right):
     """Impose u[0] = g_left, u[-1] = g_right by row/column elimination
     (boundary rows become identity, boundary columns move to the rhs)."""

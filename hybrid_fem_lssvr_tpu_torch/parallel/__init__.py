@@ -1,1 +1,3 @@
-"""Layout transposes and line sweeps (single-device part so far)."""
+"""Distributed solves on ``torch.distributed`` (device meshes, the five
+collectives, the 1D SPIKE solve, the 2D and 3D slab, grid and graded
+solves) and the ADI line sweeps."""

@@ -5,8 +5,14 @@ PyTorch counterpart of the single-device part of
 independent tridiagonal line systems along one axis (batched Thomas, lines
 on the batch axis), and a transpose switches the line direction between
 half-steps.  ``transpose_fn`` / ``transpose_fn_T`` are the hooks a
-distributed all-to-all transpose plugs into; that sharded transpose is not
-ported yet, and with None the local ``.T`` is used.
+distributed all-to-all transpose plugs into (``make_sharded_transpose``, or
+``_local_transpose_block`` inside a distributed solve); with None the local
+``.T`` is used.
+
+The sharded transpose is the Ulysses pattern: a [rows, cols] array sharded
+over rows becomes its transpose [cols, rows] sharded over rows in one
+all-to-all, each rank exchanging a [rows/D, cols/D] block with every
+other rank.
 """
 
 from __future__ import annotations
@@ -16,6 +22,39 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import tridiag
+from . import collectives as col
+from .mesh import ELEMENT_AXIS, axis_size
+
+
+def _local_transpose_block(x_loc, mesh, axis, n_dev):
+    """Local shard [r_loc, Ctot] -> transposed shard [Ctot/n_dev,
+    r_loc n_dev] via one all-to-all."""
+    r_loc, Ctot = x_loc.shape
+    c_loc = Ctot // n_dev
+    # [r_loc, n_dev, c_loc] -> [n_dev, r_loc, c_loc]: chunk e goes to rank e.
+    blocks = x_loc.reshape(r_loc, n_dev, c_loc).transpose(0, 1)
+    recv = col.all_to_all(blocks.contiguous(), mesh, axis)
+    # recv[e, j, i] = x[e r_loc + j, d c_loc + i]  (d = this rank)
+    # -> out[i, e r_loc + j]: exactly x.T rows [d c_loc, (d+1) c_loc).
+    return recv.permute(2, 0, 1).reshape(c_loc, n_dev * r_loc)
+
+
+def make_sharded_transpose(mesh, rows: int, cols: int,
+                           axis: str = ELEMENT_AXIS):
+    """Distributed transpose: x [rows, cols] sharded over rows -> x.T
+    [cols, rows] sharded over rows.  Returns fn(x_rank [rows/D, cols]) ->
+    [cols/D, rows], which every rank calls together.  rows and cols must
+    divide by the rank count (pad upstream otherwise)."""
+    n_dev = axis_size(mesh, axis)
+    if rows % n_dev or cols % n_dev:
+        raise ValueError(
+            f"rows={rows} and cols={cols} must divide by n_dev={n_dev}"
+        )
+
+    def transpose(x_loc):
+        return _local_transpose_block(x_loc, mesh, axis, n_dev)
+
+    return transpose
 
 
 def _line_solve(rhs_rows, h, tau, n_true=None):

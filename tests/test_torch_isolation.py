@@ -60,3 +60,16 @@ def test_chip_smoke_without_a_card_prints_no_result(where, tmp_path):
     out = run(["chip_smoke.py"], cwd=cwd)
     assert out.returncode != 0
     assert out.stdout == ""
+
+
+def test_spawned_rank_of_the_distributed_tests_loads_no_jax(tmp_path):
+    """A rank of the distributed tests (``_torch_ranks.py``), spawned from
+    this process that has JAX loaded, imports the port's distributed
+    modules and loads no ``jax``, ``jaxlib`` or ``hybrid_fem_lssvr_tpu``
+    module."""
+    import _torch_ranks
+
+    res = _torch_ranks.run_ranks(1, "_torch_ranks", ["isolation"], tmp_path)
+    assert "error" not in res["isolation"], res["isolation"]["error"]
+    assert list(res["isolation"]["modules"]) == []
+    assert res["_modules"] == []
